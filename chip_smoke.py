@@ -2,29 +2,39 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``gym_anm_tpu_torch/csrc/`` and drives
-the port's main path on the card, one JSON line per phase:
+Builds the port's CUDA kernels from ``gym_anm_tpu_torch/csrc/`` and drives
+the port's paths on the card, one JSON line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 is off;
-2. build: compiles the tree-NR kernel and reports the seconds it took;
-3. kernel vs plain: the kernel against its plain PyTorch version at
-   B=4096 float32 on the ANM6, feeder33 and feeder141 grids (converged
-   flags agree on >= 99% of lanes, V to atol 5e-5 on lanes both versions
-   converged, |dn_iter| <= 1 on >= 97% of those lanes and <= 4 on all),
-   with the median time of each;
-4. parity replay: ``tests/data/onchip_ref_anm6easy.npz`` through the port's
-   ``EnvCore`` on the card, compared with the committed host-float64
-   trajectory by ``check.compare_trajectories``;
-5. rollout: ``BatchedEnv(make_core(torch.float32, "cuda"), 4096)``, one
-   reset and a few 64-step rollouts with uniform random actions, with the
-   kernel's launch count over that run.
+2. build: one ``nvcc`` call for the three kernels, with the seconds it took
+   and each kernel's registers, stack (local memory) and spills;
+3. kernel vs plain, each kernel against its plain PyTorch twin at B=4096
+   float32: the tree-NR kernel (K1) on the ANM6, feeder33 and feeder141
+   grids; the dense-NR kernel (K2) on ANM6 and feeder33 with (chord 0,
+   pivot off) and (chord 16, pivot on); the fused-transition kernel (K3) on
+   ANM6 and feeder33 for ``fused`` and ``fused_hybrid``, from inputs a
+   rollout of the task gives.  The rule: converged flags agree on >= 99% of
+   lanes; V (K1, K2) or every output field (K3) within 5e-5 on lanes both
+   versions converged (the penalty, which scales voltages by lamb, within
+   5e-3); |dn_iter| <= 1 on >= 97% of those lanes.  Times are medians of
+   CUDA-event timings after a warm-up; each row carries the kernel's bound;
+4. parity: ``tests/data/onchip_ref_{anm6easy,feeder33}.npz`` through every
+   solver path of ``check.CHECK_CONFIG`` on the card, compared with the
+   committed host-float64 trajectories by ``check.compare_trajectories``,
+   with the launch count of the kernel each path uses;
+5. rollout: ``BatchedEnv(make_core(pf_method=...), 4096)`` for the tree,
+   pallas and fused paths, one reset and a few 64-step rollouts with
+   uniform random actions; every launch count is set to 0 just before a
+   path runs and read just after, and the path's kernel must have run.
 
 It exits non-zero, printing no result, when no GPU is available or any
-phase fails.  The last line is ``{"ok": true, "device": {...}}``.
+phase fails.  The line before the last lists the kernels; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -38,27 +48,97 @@ import torch
 ROLLOUT_B = 4096
 ROLLOUT_T = 64
 ROLLOUTS = 3
+ROLLOUT_PATHS = ("tree", "pallas", "fused")
 KERNEL_B = 4096
-# Grids of the kernel check: (name, injection amplitude, x_tol); feeder141
-# keeps the float32 mismatch-plateau tolerance of its task.
-KERNEL_GRIDS = (("anm6", 0.3, 1e-5), ("feeder33", 0.05, 1e-5), ("feeder141", 0.02, 3e-5))
-KERNEL_MAX_ITER = 12
+# Grids of the tree-kernel check: (name, injection amplitude, x_tol);
+# feeder141 keeps the float32 mismatch-plateau tolerance of its task.
+TREE_GRIDS = (("anm6", 0.3, 1e-5), ("feeder33", 0.05, 1e-5), ("feeder141", 0.02, 3e-5))
+TREE_MAX_ITER = 12
+# Dense-NR checks: (grid, amplitude, chord_iters, pivot, max_iter = the task's budget for that path).
+NR_CASES = (
+    ("anm6", 0.3, 0, False, 10), ("anm6", 0.3, 16, True, 6),
+    ("feeder33", 0.05, 0, False, 15), ("feeder33", 0.05, 16, True, 6),
+)
+STEP_ENVS = ("anm6easy", "feeder33")
 V_ATOL = 5e-5
+PENALTY_ATOL = 5e-3
+# The card's peak rates (NVIDIA H100 SXM data sheet): float32 outside the
+# tensor cores, and device-memory bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+KERNEL_INFO = {
+    "tree_nr": ("gym_anm_tpu_torch/csrc/tree_nr.cu", "gym_anm_tpu/ops/pallas_tree.py:267"),
+    "nr_dense": ("gym_anm_tpu_torch/csrc/nr_dense.cu", "gym_anm_tpu/ops/pallas_nr.py:269"),
+    "step_fused": ("gym_anm_tpu_torch/csrc/step_fused.cu", "gym_anm_tpu/ops/pallas_step.py:158"),
+}
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def median_ms(fn, n):
+def event_ms(fn, launches, trials):
+    """Median over ``trials`` of the CUDA-event time of ``launches`` calls,
+    per call, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
     ts = []
-    for _ in range(n):
+    for _ in range(trials):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        ts.append(time.perf_counter() - t0)
-    return float(np.median(ts)) * 1e3
+        ts.append(start.elapsed_time(end) / launches)
+    return float(np.median(ts))
+
+
+def bound(flops, nbytes):
+    """The least time the card could take: the larger of the operations over
+    the float32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": int(flops), "bytes": int(nbytes)}
+
+
+def agreement(conv_k, conv_p, diffs, it_k, it_p):
+    """Flags, worst difference on lanes both converged, and iteration deltas."""
+    both = conv_k & conv_p
+    err = max(float(d[..., both].abs().max()) if bool(both.any()) else 0.0 for d in diffs)
+    dit = (it_k.long() - it_p.long()).abs()[both].cpu().numpy()
+    return {
+        "converged_frac": float(conv_k.float().mean()), "converged_agree": float((conv_k == conv_p).float().mean()),
+        "max_abs_err": err, "dit_le1_frac": float((dit <= 1).mean()), "dit_max": int(dit.max()),
+    }
+
+
+def check_agreement(row, atol=V_ATOL):
+    if not (row["converged_agree"] >= 0.99 and row["max_abs_err"] <= atol and row["dit_le1_frac"] >= 0.97
+            and row["dit_max"] <= 4):
+        raise AssertionError("kernel disagrees with its plain version: %s" % row)
+
+
+def zero_counts():
+    from gym_anm_tpu_torch.ops import nr_cuda, step_cuda, tree_cuda
+
+    for mod in (tree_cuda, nr_cuda, step_cuda):
+        mod.KERNEL_LAUNCHES = 0
+
+
+def read_counts():
+    from gym_anm_tpu_torch.ops import nr_cuda, step_cuda, tree_cuda
+
+    return {"tree_nr": tree_cuda.KERNEL_LAUNCHES, "nr_dense": nr_cuda.KERNEL_LAUNCHES,
+            "step_fused": step_cuda.KERNEL_LAUNCHES}
+
+
+def path_kernel(core):
+    """The kernel a core's solver path launches (None for the plain solver)."""
+    from gym_anm_tpu_torch.core.transition import resolve_solver_path
+
+    path, _ = resolve_solver_path(core.grid, core.pf_method)
+    return {"tree_kernel": "tree_nr", "nr_kernel": "nr_dense", "fused_kernel": "step_fused"}.get(path)
 
 
 def phase_device():
@@ -84,88 +164,179 @@ def phase_build():
     path, log = _build.build()
     _build.load_library()
     seconds = time.perf_counter() - t0
-    ptxas = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
+    keep = ("Compiling entry function", "registers", "spill", "stack frame")
+    ptxas = [l.strip() for l in log.splitlines() if any(k in l for k in keep)]
     emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path), "ptxas": ptxas})
 
 
-def phase_kernel_vs_plain():
-    from gym_anm_tpu_torch.core.grid import build_grid
+def _grid(name):
+    from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
     from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
     from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network, make_multi_feeder_network
+
+    net = {"anm6": lambda: anm6_network, "feeder33": make_feeder_network, "feeder141": make_multi_feeder_network}[name]()
+    return GridTensors.from_spec(build_grid(net, 0.25, 100, dtype=np.float32)[0], "cuda", torch.float32)
+
+
+def _injections(m, amp, seed=0):
+    rng = np.random.default_rng(seed)
+    p = torch.tensor(rng.uniform(-amp, amp, (m, KERNEL_B)).astype(np.float32), device="cuda")
+    q = torch.tensor(rng.uniform(-0.6 * amp, 0.6 * amp, (m, KERNEL_B)).astype(np.float32), device="cuda")
+    return p, q
+
+
+def phase_tree_vs_plain():
     from gym_anm_tpu_torch.ops import tree_cuda
 
-    networks = {"anm6": anm6_network, "feeder33": make_feeder_network(), "feeder141": make_multi_feeder_network()}
     rows = []
-    for name, amp, x_tol in KERNEL_GRIDS:
-        spec, _ = build_grid(networks[name], 0.25, 100, dtype=np.float32)
-        ds = tree_cuda.DeviceSchedule.from_spec(spec, "cuda", torch.float32)
-        rng = np.random.default_rng(0)
-        B, m = KERNEL_B, spec.n_bus - 1
-        p = torch.tensor(rng.uniform(-amp, amp, (B, m)).astype(np.float32), device="cuda")
-        q = torch.tensor(rng.uniform(-0.6 * amp, 0.6 * amp, (B, m)).astype(np.float32), device="cuda")
-        zero = torch.zeros((1, B), device="cuda")
-        pT = torch.cat([p.T, zero])[ds.slot_sel].contiguous()
-        qT = torch.cat([q.T, zero])[ds.slot_sel].contiguous()
-
-        kern = lambda: tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, x_tol=x_tol, max_iter=KERNEL_MAX_ITER)
-        plain = lambda: tree_cuda.solve_pfe_tree_plain(ds, pT, qT, x_tol=x_tol, max_iter=KERNEL_MAX_ITER)
+    for name, amp, x_tol in TREE_GRIDS:
+        g = _grid(name)
+        ds = g.tree
+        p, q = _injections(g.spec.n_bus - 1, amp)
+        zero = torch.zeros((1, KERNEL_B), device="cuda")
+        pT = torch.cat([p, zero])[ds.slot_sel].contiguous()
+        qT = torch.cat([q, zero])[ds.slot_sel].contiguous()
+        kern = lambda: tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, x_tol=x_tol, max_iter=TREE_MAX_ITER)
+        plain = lambda: tree_cuda.solve_pfe_tree_plain(ds, pT, qT, x_tol=x_tol, max_iter=TREE_MAX_ITER)
         vr_k, vi_k, d_k, it_k = kern()
-        torch.cuda.synchronize()
         vr_p, vi_p, d_p, it_p = plain()
-        torch.cuda.synchronize()
-
-        ck, cp = (d_k <= x_tol).cpu().numpy(), (d_p <= x_tol).cpu().numpy()
-        both = ck & cp
-        bt = torch.as_tensor(both, device="cuda")
-        err = max(float((vr_k - vr_p).abs()[:, bt].max()), float((vi_k - vi_p).abs()[:, bt].max()))
-        dit = np.abs(it_k.cpu().numpy().astype(np.int64) - it_p.cpu().numpy())[both]
+        S = ds.sched.S
+        flops = sum(tree_cuda.tree_nr_flops_per_lane(S, int(i)) for i in it_k.cpu().numpy())
+        nbytes = 4 * (4 * S * KERNEL_B + 2 * KERNEL_B + ds.ycols.numel() + ds.levels.numel() + ds.run_ptr.numel()
+                      + ds.runs.numel())
         row = {
-            "phase": "kernel_vs_plain", "grid": name, "S": ds.sched.S, "levels": len(ds.sched.levels),
-            "B": B, "x_tol": x_tol, "converged_frac": float(ck.mean()),
-            "converged_agree": float((ck == cp).mean()), "max_abs_err": err, "atol": V_ATOL,
-            "dit_le1_frac": float((dit <= 1).mean()), "dit_max": int(dit.max()),
-            "ms": median_ms(kern, 50), "plain_ms": median_ms(plain, 5),
+            "phase": "kernel_vs_plain", "kernel": "tree_nr", "grid": name, "S": S, "levels": len(ds.sched.levels),
+            "B": KERNEL_B, "x_tol": x_tol, "mean_iters": float(it_k.float().mean()),
+            **agreement(d_k <= x_tol, d_p <= x_tol, [vr_k - vr_p, vi_k - vi_p], it_k, it_p),
+            "ms": event_ms(kern, 20, 5), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
         }
         emit(row)
-        if not (row["converged_agree"] >= 0.99 and err <= V_ATOL and row["dit_le1_frac"] >= 0.97 and row["dit_max"] <= 4):
-            raise AssertionError("kernel disagrees with its plain version on %s: %s" % (name, row))
+        check_agreement(row)
         rows.append(row)
+    return rows
+
+
+def phase_nr_vs_plain():
+    from gym_anm_tpu_torch.ops import nr_cuda
+
+    rows = []
+    for name, amp, chord, pivot, max_iter in NR_CASES:
+        g = _grid(name)
+        n = g.spec.n_bus
+        p, q = _injections(n - 1, amp)
+        kw = dict(x_tol=1e-5, max_iter=max_iter, chord_iters=chord, pivot=pivot)
+        kern = lambda: nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
+        plain = lambda: nr_cuda.nr_core_plain(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
+        vr_k, vi_k, d_k, it_k = kern()
+        vr_p, vi_p, _, _, d_p, it_p = plain()
+        # Chord steps come first: a lane's first min(it, chord) steps are chord steps.
+        its = collections.Counter(int(i) for i in it_k.cpu().numpy())
+        flops = sum(
+            c * nr_cuda.nr_dense_flops_per_lane(n, i - min(i, chord), min(i, chord)) for i, c in its.items()
+        )
+        nbytes = 4 * (2 * n * n + (2 * n - 2) ** 2 + 2 * (n - 1) * KERNEL_B + 2 * n * KERNEL_B + 2 * KERNEL_B)
+        row = {
+            "phase": "kernel_vs_plain", "kernel": "nr_dense", "grid": name, "n": n, "chord_iters": chord,
+            "pivot": pivot, "max_iter": max_iter, "B": KERNEL_B, "mean_iters": float(it_k.float().mean()),
+            **agreement(d_k <= 1e-5, d_p <= 1e-5, [vr_k - vr_p, vi_k - vi_p], it_k, it_p),
+            "ms": event_ms(kern, 20, 5), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+        }
+        emit(row)
+        check_agreement(row)
+        rows.append(row)
+    return rows
+
+
+def _step_lanes(core, seed=0):
+    """Transition inputs a rollout of the task gives, packed batch-last."""
+    from gym_anm_tpu_torch.envs.batched import BatchedEnv
+    from gym_anm_tpu_torch.ops import step_cuda
+
+    env = BatchedEnv(core, KERNEL_B, generator=torch.Generator(device="cuda").manual_seed(seed))
+    es, _ = env.reset()
+    vars = core.next_vars_fn(es.state_vec, env.generator)
+    return step_cuda.pack_inputs(**core.transition_inputs(es, env.random_actions(), vars))
+
+
+def phase_step_vs_plain():
+    from gym_anm_tpu_torch import check
+    from gym_anm_tpu_torch.ops import step_cuda
+
+    rows = []
+    for env in STEP_ENVS:
+        for method in ("fused", "fused_hybrid"):
+            core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method=method)
+            st = core.grid.step
+            lanes = _step_lanes(core)
+            chord = core.chord_iters if method == "fused_hybrid" else 0
+            kw = dict(x_tol=core.x_tol, max_iter=core.max_iter, chord_iters=chord, pivot=core.nr_pivot)
+            kern = lambda: step_cuda.fused_transition_cuda(st, lanes, **kw)
+            plain = lambda: step_cuda.fused_transition_plain(st, lanes, **kw)
+            k = step_cuda.unpack_outputs(st, kern())
+            p = step_cuda.unpack_outputs(st, plain())
+            conv_k, conv_p = k.diff[:, 0] <= core.x_tol, p.diff[:, 0] <= core.x_tol
+            fields = [f for f in k._fields if f not in ("penalty", "n_iter")]
+            it_k, it_p = k.n_iter[:, 0], p.n_iter[:, 0]
+            agree = agreement(conv_k, conv_p, [(getattr(k, f) - getattr(p, f)).T for f in fields], it_k, it_p)
+            pen = agreement(conv_k, conv_p, [(k.penalty - p.penalty).T], it_k, it_p)["max_abs_err"]
+            its = collections.Counter(int(i) for i in it_k.cpu().numpy())
+            flops = sum(
+                c * step_cuda.step_fused_flops_per_lane(st, i - min(i, chord), min(i, chord))
+                for i, c in its.items()
+            )
+            tables = sum(t.numel() for t in st.f.values()) + sum(t.numel() for t in st.i.values())
+            nbytes = 4 * ((sum(st.in_rows) + sum(st.out_rows)) * KERNEL_B + tables)
+            row = {
+                "phase": "kernel_vs_plain", "kernel": "step_fused", "env": env, "pf_method": method,
+                "chord_iters": chord, "max_iter": core.max_iter, "B": KERNEL_B, "mean_iters": float(it_k.mean()),
+                **agree, "penalty_max_abs_err": pen,
+                "ms": event_ms(kern, 20, 5), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+            }
+            emit(row)
+            check_agreement(row)
+            if pen > PENALTY_ATOL:
+                raise AssertionError("fused kernel's penalty disagrees with its plain version: %s" % row)
+            rows.append(row)
     return rows
 
 
 def phase_parity():
     from gym_anm_tpu_torch import check
-    from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
-    from gym_anm_tpu_torch.ops import tree_cuda
 
-    data = check.load_reference("anm6easy")
-    core = make_core(dtype=torch.float32, device="cuda")
-    tree_cuda.KERNEL_LAUNCHES = 0
-    t0 = time.perf_counter()
-    sv, rw, tm = check.rollout_given(core, data["s0"], data["actions"], data["vars"])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = tree_cuda.KERNEL_LAUNCHES
-    res = check.compare_trajectories(
-        {k: data[k] for k in ("state_vec", "reward", "terminated")},
-        {"state_vec": sv.cpu().numpy(), "reward": rw.cpu().numpy(), "terminated": tm.cpu().numpy()},
-    )
-    T, B = data["actions"].shape[:2]
-    emit({"phase": "parity", "env": "anm6easy", "B": B, "T": T, "seconds": seconds, "launches": launches, **res})
-    if not res["pass"]:
-        raise AssertionError("parity replay failed: %s" % res)
-    if launches < T + 1:
-        raise AssertionError("the replay launched the kernel %d times, expected >= %d" % (launches, T + 1))
+    for env, cfg in check.CHECK_CONFIG.items():
+        data = check.load_reference(env)
+        T = data["actions"].shape[0]
+        for method, kw in cfg["methods"].items():
+            core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method=method, **kw)
+            kernel = path_kernel(core)
+            zero_counts()
+            t0 = time.perf_counter()
+            sv, rw, tm = check.rollout_given(core, data["s0"], data["actions"], data["vars"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            res = check.compare_trajectories(
+                {k: data[k] for k in ("state_vec", "reward", "terminated")},
+                {"state_vec": sv.cpu().numpy(), "reward": rw.cpu().numpy(), "terminated": tm.cpu().numpy()},
+            )
+            emit({"phase": "parity", "env": env, "pf_method": method, "B": data["actions"].shape[1], "T": T,
+                  "seconds": seconds, "kernel": kernel, "launches": counts, **res})
+            if not res["pass"]:
+                raise AssertionError("parity replay failed: %s %s %s" % (env, method, res))
+            if kernel is not None and counts[kernel] < T + 1:
+                raise AssertionError("the %s replay launched %s %d times, expected >= %d"
+                                     % (method, kernel, counts[kernel], T + 1))
 
 
-def phase_rollout():
+def phase_rollout(pf_method):
     from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
     from gym_anm_tpu_torch.envs.batched import BatchedEnv
-    from gym_anm_tpu_torch.ops import tree_cuda
 
-    env = BatchedEnv(make_core(dtype=torch.float32, device="cuda"), ROLLOUT_B)
-    tree_cuda.KERNEL_LAUNCHES = 0
+    core = make_core(dtype=torch.float32, device="cuda", pf_method=pf_method)
+    kernel = path_kernel(core)
+    env = BatchedEnv(core, ROLLOUT_B)
     torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     es, first = env.reset()
     torch.cuda.synchronize()
@@ -179,26 +350,26 @@ def phase_rollout():
         seconds.append(time.perf_counter() - t0)
         rewards.append(reward)
         terms.append(terminated)
-    launches = tree_cuda.KERNEL_LAUNCHES
+    counts = read_counts()
 
     reward = torch.cat(rewards)
     obs = env.core.observation(es)
     if reward.shape != (ROLLOUTS * ROLLOUT_T, ROLLOUT_B) or not bool(torch.isfinite(reward).all()):
-        raise AssertionError("rollout rewards are not finite [T, B]")
+        raise AssertionError("%s rollout rewards are not finite [T, B]" % pf_method)
     if obs.shape != (ROLLOUT_B, env.core.obs_n) or not bool(torch.isfinite(obs).all()):
-        raise AssertionError("observations are not finite [B, obs_n]")
+        raise AssertionError("%s observations are not finite [B, obs_n]" % pf_method)
     if bool(first.terminated.any()):
         raise AssertionError("reset left %d lanes terminated" % int(first.terminated.sum()))
-    if launches < 1 + ROLLOUTS * ROLLOUT_T:
-        raise AssertionError("the main path launched the kernel %d times" % launches)
+    if counts[kernel] < 1 + ROLLOUTS * ROLLOUT_T:
+        raise AssertionError("the %s path launched %s %d times" % (pf_method, kernel, counts[kernel]))
     steady = float(np.median(seconds[1:]))
     emit({
-        "phase": "rollout", "env": "anm6easy", "B": ROLLOUT_B, "T": ROLLOUT_T, "rollouts": ROLLOUTS,
-        "reset_s": reset_s, "rollout_s": seconds, "env_steps_per_s": ROLLOUT_B * ROLLOUT_T / steady,
+        "phase": "rollout", "env": "anm6easy", "pf_method": pf_method, "B": ROLLOUT_B, "T": ROLLOUT_T,
+        "rollouts": ROLLOUTS, "reset_s": reset_s, "rollout_s": seconds, "env_steps_per_s": ROLLOUT_B * ROLLOUT_T / steady,
         "terminated_frac": float(terms[-1][-1].float().mean()), "mean_reward": float(reward.mean()),
-        "launches": launches,
+        "kernel": kernel, "launches": counts,
     })
-    return launches
+    return kernel, counts[kernel]
 
 
 def main() -> int:
@@ -210,23 +381,23 @@ def main() -> int:
 
         phase_device()
         phase_build()
-        rows = phase_kernel_vs_plain()
+        checks = {"tree_nr": phase_tree_vs_plain(), "nr_dense": phase_nr_vs_plain(), "step_fused": phase_step_vs_plain()}
         phase_parity()
-        launches = phase_rollout()
+        launches = dict(phase_rollout(pf) for pf in ROLLOUT_PATHS)
     except Exception:
         traceback.print_exc()
         return 1
-    main_row = rows[0]  # ANM6 at B=4096: the shapes the main path gives the kernel
-    emit({"kernels": [{
-        "name": "tree_nr",
-        "route": "cuda",
-        "source": "gym_anm_tpu_torch/csrc/tree_nr.cu",
-        "replaces": "gym_anm_tpu/ops/pallas_tree.py:267",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-    }]})
+    kernels = []
+    for name, rows in checks.items():
+        main_row = rows[0]  # ANM6 at B=4096 on the main path's settings
+        source, replaces = KERNEL_INFO[name]
+        errs = [max(r["max_abs_err"], r.get("penalty_max_abs_err", 0.0)) for r in rows]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(errs), "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
+        })
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }})

@@ -18,6 +18,35 @@ import torch
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "data")
 
+# A copy of the JAX package's ``CHECK_CONFIG`` for the tasks the port has:
+# the committed reference's sizes, how its actions and internal variables
+# were made, and the solver paths to replay with their ``make_core``
+# keyword arguments (the calibrated budgets).
+CHECK_CONFIG = {
+    "anm6easy": dict(
+        B=256,
+        T=64,
+        seed=0,
+        action_scale=1.0,
+        methods={"pallas": {}, "scan": {}, "hybrid": {"pf_max_iter": 6}, "fused": {}, "tree": {}},
+    ),
+    "feeder33": dict(
+        B=128, T=24, seed=0, action_scale=1.0, stress=1.5,
+        methods={"tree": {}, "hybrid": {}, "pallas": {}},
+    ),
+}
+
+
+def task_make_core(env_name: str):
+    """The ``make_core`` of a task of :data:`CHECK_CONFIG`."""
+    if env_name == "anm6easy":
+        from .envs.anm6.anm6_easy import make_core
+    elif env_name == "feeder33":
+        from .envs.feeder33 import make_core
+    else:
+        raise ValueError("no port of the %r task" % env_name)
+    return make_core
+
 
 def ref_path(env_name: str) -> str:
     return os.path.join(DATA_DIR, "onchip_ref_%s.npz" % env_name)

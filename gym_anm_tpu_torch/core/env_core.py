@@ -85,9 +85,12 @@ class EnvCore:
     """Static environment configuration + batched step/reset.
 
     ``device`` and ``dtype`` are where and in what type the core computes;
-    the grid's tables are moved there once.  Observations are the clipped
-    canonical state vector (fully observable tasks); packing other
-    observables is not ported yet.
+    the grid's tables are moved there once.  ``pf_method`` is one of
+    :data:`~gym_anm_tpu_torch.core.transition.PF_METHODS`; ``chord_iters``
+    (the hybrid methods' chord prefix) and ``nr_pivot`` (partial pivoting in
+    the dense NR elimination) keep the JAX package's defaults.
+    Observations are the clipped canonical state vector (fully observable
+    tasks); packing other observables is not ported yet.
     """
 
     def __init__(
@@ -105,6 +108,8 @@ class EnvCore:
         max_iter: int = 100,
         pf_method: str = "tree",
         reset_attempts: int = 10,
+        chord_iters: int = 16,
+        nr_pivot: bool = False,
     ):
         if pf_method not in PF_METHODS:
             raise ValueError("pf_method %r is not supported; the port has %s" % (pf_method, PF_METHODS))
@@ -124,6 +129,8 @@ class EnvCore:
         self.max_iter = max_iter
         self.pf_method = pf_method
         self.reset_attempts = int(reset_attempts)
+        self.chord_iters = int(chord_iters)
+        self.nr_pivot = bool(nr_pivot)
 
         self.state_values = state_values_spec(spec, self.K)
         self.state_gather = compile_gather(spec, self.state_values, self.K, aux_bounds)
@@ -178,12 +185,10 @@ class EnvCore:
         return torch.where(_lanes(es.terminated, obs), torch.zeros_like(obs), obs)
 
     # ------------------------------------------------------------------
-    def step(self, es: EnvState, action, vars) -> tuple[EnvState, StepOut]:
-        """One batched step given pre-sampled internal variables.
-
-        ``action [B, action_n]`` in MW/MVAr, ``vars [B, vars_n] = [P_load
-        (MW), P_pot (MW), aux]``.
-        """
+    def transition_inputs(self, es: EnvState, action, vars) -> dict:
+        """The p.u. inputs of :func:`~gym_anm_tpu_torch.core.transition.transition`
+        for a step from ``es`` with ``action [B, action_n]`` (MW/MVAr) and
+        ``vars [B, vars_n] = [P_load (MW), P_pot (MW), aux]``."""
         spec = self.spec
         base = spec.baseMVA
         n_gen, n_des, n_load = spec.n_gen, spec.n_des, spec.n_load
@@ -193,23 +198,34 @@ class EnvCore:
                 "Next vars vector has size %d but expected is %d" % (vars.shape[-1], self.expected_vars_n)
             )
         action = torch.as_tensor(action, device=self.device).to(self.dtype)
-
-        P_load = vars[:, :n_load] / base
-        P_pot = vars[:, n_load : n_load + n_gen] / base
-        aux_new = vars[:, n_load + n_gen :]
-
-        res = transition(
-            self.grid,
-            es.sim.des_soc,
-            P_load=P_load,
-            P_pot=P_pot,
+        return dict(
+            des_soc=es.sim.des_soc,
+            P_load=vars[:, :n_load] / base,
+            P_pot=vars[:, n_load : n_load + n_gen] / base,
             P_set_gen=action[:, :n_gen] / base,
             Q_set_gen=action[:, n_gen : 2 * n_gen] / base,
             P_set_des=action[:, 2 * n_gen : 2 * n_gen + n_des] / base,
             Q_set_des=action[:, 2 * n_gen + n_des :] / base,
+        )
+
+    def step(self, es: EnvState, action, vars) -> tuple[EnvState, StepOut]:
+        """One batched step given pre-sampled internal variables.
+
+        ``action [B, action_n]`` in MW/MVAr, ``vars [B, vars_n] = [P_load
+        (MW), P_pot (MW), aux]``.
+        """
+        args = self.transition_inputs(es, action, vars)
+        n_aux = self.expected_vars_n - self.K
+        aux_new = torch.as_tensor(vars, device=self.device).to(self.dtype)[:, n_aux:]
+
+        res = transition(
+            self.grid,
+            **args,
             x_tol=self.x_tol,
             max_iter=self.max_iter,
             pf_method=self.pf_method,
+            chord_iters=self.chord_iters,
+            nr_pivot=self.nr_pivot,
         )
 
         c1, c2 = self.costs_clipping
@@ -221,7 +237,7 @@ class EnvCore:
 
         prev = es.terminated
         term = prev | newly_term
-        sim_new = select_state(term, self._zeros(action.shape[0]), res.state)
+        sim_new = select_state(term, self._zeros(aux_new.shape[0]), res.state)
         aux_out = torch.where(_lanes(term, aux_new), torch.zeros_like(aux_new), aux_new)
         state_vec = self._compute_state_vec(sim_new, aux_out, term)
         es_new = EnvState(sim=sim_new, aux=aux_out, terminated=term, state_vec=state_vec)
@@ -256,7 +272,10 @@ class EnvCore:
             raise EnvInitializationError(
                 "Expected size of initial state s0 is %d but actual is %d" % (self.expected_s0_n, s0.shape[-1])
             )
-        sim = sim_reset(self.grid, s0, x_tol=self.x_tol, max_iter=self.max_iter, pf_method=self.pf_method)
+        sim = sim_reset(
+            self.grid, s0, x_tol=self.x_tol, max_iter=self.max_iter, pf_method=self.pf_method,
+            chord_iters=self.chord_iters, nr_pivot=self.nr_pivot,
+        )
         aux = s0[:, 2 * spec.n_dev + spec.n_des + spec.n_gen :]
         terminated = ~sim.pfe_converged
         sim = select_state(terminated, self._zeros(s0.shape[0]), sim)

@@ -889,16 +889,20 @@ class GridTensors:
     dev_perm: torch.Tensor  # [d] int64: [slack, loads, gens, des] -> device order
     projector: object  # ops.projection.LanesProjector over [gen_G; des_G]
     tree: object  # ops.tree_cuda.DeviceSchedule, None for a meshed grid
+    J0inv: torch.Tensor  # [2m, 2m] inverse flat-start Jacobian (chord iterations)
+    step: object  # ops.step_cuda.StepTables, None without a load, generator and storage unit
 
     @classmethod
     def from_spec(cls, spec: GridSpec, device, dtype: torch.dtype) -> "GridTensors":
+        from ..ops.power_flow import flat_start_jacobian_inv_np
         from ..ops.projection import LanesProjector
+        from ..ops.step_cuda import StepTables, fused_transition_supported
         from ..ops.tree_cuda import DeviceSchedule
 
         device = torch.device(device)
         out = {}
         for f in dataclasses.fields(cls):
-            if f.name in ("spec", "device", "dtype", "dev_perm", "projector", "tree"):
+            if f.name in ("spec", "device", "dtype", "dev_perm", "projector", "tree", "J0inv", "step"):
                 continue
             a = np.asarray(getattr(spec, f.name))
             dt = torch.int64 if np.issubdtype(a.dtype, np.integer) else dtype
@@ -909,6 +913,7 @@ class GridTensors:
         perm = np.empty(spec.n_dev, dtype=np.int64)
         perm[concat_order] = np.arange(spec.n_dev)
         G_static = np.concatenate([np.asarray(spec.gen_G), np.asarray(spec.des_G)], axis=0)
+        J0inv = flat_start_jacobian_inv_np(spec.Y_re, spec.Y_im, np.float64)
         return cls(
             spec=spec,
             device=device,
@@ -916,5 +921,7 @@ class GridTensors:
             dev_perm=torch.as_tensor(perm, device=device),
             projector=LanesProjector(G_static, device, dtype),
             tree=DeviceSchedule.from_spec(spec, device, dtype),
+            J0inv=torch.as_tensor(J0inv, device=device).to(dtype),
+            step=StepTables.from_spec(spec, device, dtype) if fused_transition_supported(spec) else None,
             **out,
         )

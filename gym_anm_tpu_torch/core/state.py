@@ -49,7 +49,7 @@ class SimState:
 SIM_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 
 
-def zeros_state(spec: GridSpec, batch_shape=(), device="cpu", dtype=torch.float32) -> SimState:
+def zeros_state(spec: GridSpec, batch_shape=(), device="cuda", dtype=torch.float32) -> SimState:
     """An all-zeros SimState (the terminal absorbing state)."""
     z = lambda k: torch.zeros(tuple(batch_shape) + (k,), device=device, dtype=dtype)
     return SimState(
@@ -92,14 +92,14 @@ def _tensor(a, device, dtype):
     return torch.as_tensor(a, device=device).to(dt)
 
 
-def sim_state_from_numpy(fields, device="cpu", dtype=torch.float32) -> SimState:
+def sim_state_from_numpy(fields, device="cuda", dtype=torch.float32) -> SimState:
     """A SimState from a mapping (or object) holding the 20 fields as arrays,
     e.g. a ``gym_anm_tpu`` ``SimState`` converted with ``np.asarray``."""
     get = fields.__getitem__ if isinstance(fields, dict) else lambda k: getattr(fields, k)
     return SimState(**{k: _tensor(get(k), device, dtype) for k in SIM_FIELDS})
 
 
-def env_state_from_numpy(sim, aux, terminated, state_vec, device="cpu", dtype=torch.float32):
+def env_state_from_numpy(sim, aux, terminated, state_vec, device="cuda", dtype=torch.float32):
     """An :class:`~gym_anm_tpu_torch.core.env_core.EnvState` from NumPy
     arrays (``sim`` as for :func:`sim_state_from_numpy`)."""
     from .env_core import EnvState

@@ -1,17 +1,21 @@
 """The physics transition on tensors.
 
-The counterpart of ``gym_anm_tpu.core.transition`` (``transition`` and
-``sim_reset``), i.e. of the reference's ``Simulator.transition``
-(simulator.py:464-537) and ``Simulator.reset`` (simulator.py:225-293):
+The counterpart of ``gym_anm_tpu.core.transition`` (``transition``,
+``resolve_solver_path`` and ``sim_reset``), i.e. of the reference's
+``Simulator.transition`` (simulator.py:464-537) and ``Simulator.reset``
+(simulator.py:225-293):
 
 1. map requested device set-points onto feasible (P, Q) injections (loads:
    clip + Q/P ratio; generators/storage: exact polytope projection),
 2. update storage SoC,
 3. aggregate bus injections with the static bus-device incidence,
-4. solve the AC power flow with the tree-structured Newton-Raphson solver
-   (the CUDA kernel on a CUDA float32 batch, its plain version on the CPU),
+4. solve the AC power flow (see :func:`resolve_solver_path`),
 5. recover slack/bus/branch electrical quantities,
 6. compute the energy-loss + constraint-penalty reward.
+
+``pf_method="fused"``/``"fused_hybrid"`` run all six stages in one launch of
+the whole-transition kernel (``ops/step_cuda.py``).  Each kernel runs on a
+CUDA float32 batch; on the CPU its plain PyTorch twin runs instead.
 
 All power quantities are per-unit; complex quantities are (re, im) real
 pairs.  Dynamic inputs carry one leading batch axis ``[B, k]``.  The
@@ -26,11 +30,15 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.nr_cuda import solve_pfe_nr
+from ..ops.power_flow import cmul as _cmul, solve_pfe
+from ..ops.step_cuda import fused_transition
 from ..ops.tree_cuda import solve_pfe_tree
 from .grid import GridTensors, POLY_ROW_P_CAP, POLY_ROW_P_FLOOR
 from .state import SimState
 
-PF_METHODS = ("tree",)
+# Every solver path of the JAX package but its "tree_xla" ablation.
+PF_METHODS = ("tree", "pallas", "hybrid", "fused", "fused_hybrid", "scan", "while", "xla_hybrid")
 
 
 class TransitionResult(NamedTuple):
@@ -39,10 +47,6 @@ class TransitionResult(NamedTuple):
     e_loss: torch.Tensor
     penalty: torch.Tensor
     pfe_converged: torch.Tensor
-
-
-def _cmul(ar, ai, br, bi):
-    return ar * br - ai * bi, ar * bi + ai * br
 
 
 def compute_branch_flows(g: GridTensors, v_re, v_im):
@@ -133,6 +137,70 @@ def _reward(g: GridTensors, dev_p, gen_p_pot, v_re, v_im, br_s):
     return -(e_loss + penalty), e_loss, penalty
 
 
+def resolve_solver_path(g: GridTensors, pf_method: str):
+    """The solver :func:`transition` dispatches to, as ``(path,
+    effective_pf_method)``; the single source of the dispatch.
+
+    ``path`` is ``"fused_kernel"`` (the whole-transition kernel),
+    ``"nr_kernel"`` (the dense-NR kernel), ``"tree_kernel"`` (the tree-NR
+    kernel, radial grids only) or ``"torch"`` (the plain ``solve_pfe``).  The
+    kernels run on a CUDA float32 batch and their plain twins on the CPU.
+    ``effective_pf_method`` is ``pf_method`` after the fused path's
+    semantic downgrade (as in the JAX package): a grid without a load, a
+    generator and a storage unit runs ``"fused"`` as ``"pallas"`` and
+    ``"fused_hybrid"`` as ``"hybrid"``.
+    """
+    if pf_method not in PF_METHODS:
+        raise ValueError("pf_method %r is not supported; the port has %s" % (pf_method, PF_METHODS))
+    if pf_method == "tree":
+        if g.tree is None:
+            raise ValueError(
+                "pf_method='tree' requires a radial network (a tree rooted at the "
+                "slack bus); this network is meshed or disconnected"
+            )
+        return "tree_kernel", pf_method
+    eff = pf_method
+    if eff in ("fused", "fused_hybrid"):
+        if g.step is not None:
+            return "fused_kernel", eff
+        eff = "pallas" if eff == "fused" else "hybrid"
+    if eff in ("pallas", "hybrid"):
+        return "nr_kernel", eff
+    return "torch", eff
+
+
+def _fused(g: GridTensors, args, x_tol, max_iter, chord_iters, nr_pivot) -> TransitionResult:
+    """The whole transition in one launch (``ops/step_cuda.py``)."""
+    o = fused_transition(
+        g.step, *args, x_tol=x_tol, max_iter=max_iter, chord_iters=chord_iters, pivot=nr_pivot
+    )
+    converged = o.diff[:, 0] <= x_tol
+    e_loss, penalty = o.e_loss[:, 0], o.penalty[:, 0]
+    state = SimState(
+        dev_p=o.dev_p,
+        dev_q=o.dev_q,
+        des_soc=o.soc_new,
+        gen_p_pot=o.p_pot,
+        bus_v_re=o.v_re,
+        bus_v_im=o.v_im,
+        bus_i_re=o.i_re,
+        bus_i_im=o.i_im,
+        bus_p=o.bus_p,
+        bus_q=o.bus_q,
+        br_if_re=o.if_re,
+        br_if_im=o.if_im,
+        br_it_re=o.it_re,
+        br_it_im=o.it_im,
+        br_p_from=o.p_from,
+        br_q_from=o.q_from,
+        br_p_to=o.p_to,
+        br_q_to=o.q_to,
+        br_s=o.s_max,
+        pfe_converged=converged,
+    )
+    return TransitionResult(state, -(e_loss + penalty), e_loss, penalty, converged)
+
+
 def transition(
     g: GridTensors,
     des_soc,
@@ -145,20 +213,29 @@ def transition(
     x_tol=1e-5,
     max_iter=100,
     pf_method="tree",
+    chord_iters=16,
+    nr_pivot=False,
 ) -> TransitionResult:
     """One physics transition (simulator.py:464-537). All inputs in p.u.
 
     ``des_soc [B, n_des]``, ``P_load [B, n_load]``, ``P_pot [B, n_gen]``,
     ``P_set_gen, Q_set_gen [B, n_gen]``, ``P_set_des, Q_set_des [B, n_des]``.
-    ``pf_method`` must be ``"tree"`` (radial grids only).
+
+    ``pf_method`` (one of :data:`PF_METHODS`, dispatched by
+    :func:`resolve_solver_path`): ``"tree"`` is exact per-lane NR with the
+    tree block elimination (radial grids); ``"pallas"`` dense per-lane NR,
+    ``"hybrid"`` the same after ``chord_iters`` chord iterations;
+    ``"fused"``/``"fused_hybrid"`` those two solves inside the
+    whole-transition kernel; ``"scan"``/``"while"``/``"xla_hybrid"`` the
+    plain ``solve_pfe`` methods.  ``max_iter`` is the true-NR budget (the
+    tail after the chord prefix for the hybrid methods); ``nr_pivot``
+    turns on partial pivoting in the dense NR elimination.
     """
-    if pf_method not in PF_METHODS:
-        raise ValueError("pf_method %r is not supported; the port has %s" % (pf_method, PF_METHODS))
-    if g.tree is None:
-        raise ValueError(
-            "pf_method='tree' requires a radial network (a tree rooted at the "
-            "slack bus); this network is meshed or disconnected"
-        )
+    path, method = resolve_solver_path(g, pf_method)
+    chord = chord_iters if method in ("hybrid", "fused_hybrid") else 0
+    if path == "fused_kernel":
+        args = (des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des)
+        return _fused(g, args, x_tol, max_iter, chord, nr_pivot)
     spec = g.spec
     dev_p, dev_q, new_soc, p_pot = _map_set_points(
         g, des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des
@@ -169,9 +246,19 @@ def transition(
     bus_q = dev_q @ g.inc_bus_dev.T
 
     # Newton-Raphson load flow; the slack bus is internal index 0.
-    v_re, v_im, _, _, converged = solve_pfe_tree(
-        g.tree, bus_p[:, 1:], bus_q[:, 1:], x_tol=x_tol, max_iter=max_iter
-    )
+    p_in, q_in = bus_p[:, 1:], bus_q[:, 1:]
+    if path == "tree_kernel":
+        v_re, v_im, _, _, converged = solve_pfe_tree(g.tree, p_in, q_in, x_tol=x_tol, max_iter=max_iter)
+    elif path == "nr_kernel":
+        v_re, v_im, _, _, converged = solve_pfe_nr(
+            g.Y_re, g.Y_im, g.J0inv, p_in, q_in,
+            x_tol=x_tol, max_iter=max_iter, chord_iters=chord, pivot=nr_pivot,
+        )
+    else:
+        v_re, v_im, _, _, converged = solve_pfe(
+            g.Y_re, g.Y_im, p_in, q_in, x_tol=x_tol, max_iter=max_iter,
+            method="hybrid" if method == "xla_hybrid" else method, chord_iters=chord_iters, J0inv=g.J0inv,
+        )
 
     # Nodal currents I = Y V and slack power (solve_load_flow.py:54-72; NaN
     # slack power becomes +inf).  V_slack = 1 + 0j, so S_slack = conj(I_0).
@@ -214,7 +301,9 @@ def transition(
     return TransitionResult(state, reward, e_loss, penalty, converged)
 
 
-def sim_reset(g: GridTensors, s0, x_tol=1e-5, max_iter=100, pf_method="tree") -> SimState:
+def sim_reset(
+    g: GridTensors, s0, x_tol=1e-5, max_iter=100, pf_method="tree", chord_iters=16, nr_pivot=False
+) -> SimState:
     """Apply initial state vectors ``s0 [B, k]`` (reference layout,
     MW/MVAr/MWh units) to the grid (simulator.py:225-293).
 
@@ -246,6 +335,8 @@ def sim_reset(g: GridTensors, s0, x_tol=1e-5, max_iter=100, pf_method="tree") ->
         x_tol=x_tol,
         max_iter=max_iter,
         pf_method=pf_method,
+        chord_iters=chord_iters,
+        nr_pivot=nr_pivot,
     )
     # Override the SoC with the requested initial value (simulator.py:284-288;
     # the reference does not clip it here).

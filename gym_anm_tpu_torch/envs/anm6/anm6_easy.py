@@ -59,13 +59,19 @@ def _get_gen_time_series():
     return P_maxs
 
 
-def make_core(dtype=torch.float32, device="cpu", pf_max_iter=10, pf_method="tree"):
+def make_core(
+    dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", chord_iters=16, nr_pivot=False
+):
     """Build the ANM6Easy :class:`~gym_anm_tpu_torch.core.env_core.EnvCore`
-    computing on ``device`` in ``dtype`` (fully observable: the observation
-    is the state vector).
+    computing on ``device`` (the card unless the caller passes ``"cpu"``) in
+    ``dtype`` (fully observable: the observation is the state vector).
 
-    ``pf_max_iter=10`` is the JAX package's calibrated budget for this task
-    (every converging solve finishes in <= 8 iterations)."""
+    ``pf_method`` is any of
+    :data:`~gym_anm_tpu_torch.core.transition.PF_METHODS`; ``"tree"`` is the
+    default, ``"pallas"`` the JAX package's previous one.
+    ``pf_max_iter=None`` takes the JAX package's calibrated budget of 10 for
+    every method (every converging solve finishes in <= 8 iterations; its
+    parity check runs ``"hybrid"`` with 6, see ``check.CHECK_CONFIG``)."""
     from ...core.env_core import EnvCore
     from ...core.grid import build_grid
     from .network import network
@@ -86,8 +92,10 @@ def make_core(dtype=torch.float32, device="cpu", pf_max_iter=10, pf_method="tree
         aux_bounds=np.array([[0, 95]]),
         init_state_fn=lambda generator, batch_size: anm6easy_init_state(generator, batch_size, P_loads, P_maxs),
         next_vars_fn=lambda s, generator: anm6easy_next_vars(s, P_loads, P_maxs),
-        max_iter=pf_max_iter,
+        max_iter=10 if pf_max_iter is None else pf_max_iter,
         pf_method=pf_method,
+        chord_iters=chord_iters,
+        nr_pivot=nr_pivot,
         # Every ANM6Easy s0 converges on attempt 1 (JAX package calibration).
         reset_attempts=1,
     )

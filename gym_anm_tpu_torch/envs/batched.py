@@ -3,7 +3,8 @@
 The counterpart of ``gym_anm_tpu.envs.batched.BatchedEnv``: an
 :class:`~gym_anm_tpu_torch.core.env_core.EnvCore` steps a whole ``[B, ...]``
 batch of environments at once; on a CUDA device the power flow of every
-lane runs in the tree-NR kernel.  Terminated lanes stay in the absorbing
+lane (or, on the fused paths, the whole transition) runs in the kernel of
+the core's ``pf_method``.  Terminated lanes stay in the absorbing
 zero state (the reference's semantics, anm_env.py:365-367); auto-reset is
 not ported yet.
 """

@@ -53,7 +53,8 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the sources if their library is missing.
+    """Compile the sources, all in one ``nvcc`` call, if their library is
+    missing.
 
     Returns ``(path, log)``; ``log`` is nvcc's output (``-Xptxas -v``
     reports registers, shared memory and spills per kernel), empty when the
@@ -72,10 +73,23 @@ def build() -> tuple[Path, str]:
     return out, res.stdout + res.stderr
 
 
+def _check_step_layout(lib):
+    """The fused-transition kernel's table and size slots must be those the
+    wrapper packs (``step_cuda.FLOAT_TABLES``, ``INT_TABLES``, ``DIMS``)."""
+    from .step_cuda import DIMS, FLOAT_TABLES, INT_TABLES
+
+    sizes = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int()]
+    lib.step_fused_sizes(*(ctypes.byref(s) for s in sizes))
+    if [s.value for s in sizes] != [len(FLOAT_TABLES), len(INT_TABLES), len(DIMS)]:
+        raise RuntimeError("the fused-transition kernel's table layout differs from the wrapper's")
+
+
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use), with its C
     functions' argument and result types declared."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             path, _ = build()
@@ -90,5 +104,24 @@ def load_library() -> ctypes.CDLL:
                 vp,  # stream
             ]
             lib.tree_nr_solve_f32.restype = ci
+            lib.nr_dense_solve_f32.argtypes = [
+                vp, vp, vp, vp, vp,  # Y_re, Y_im, J0inv, p, q
+                ci, ci, cf, ci, ci, ci,  # n, B, x_tol, max_iter, chord_iters, pivot
+                vp, vp, vp, vp,  # v_re, v_im, diff, n_iter
+                vp,  # stream
+            ]
+            lib.nr_dense_solve_f32.restype = ci
+            lib.step_fused_sizes.argtypes = [ctypes.POINTER(ci)] * 3
+            lib.step_fused_sizes.restype = ci
+            _check_step_layout(lib)
+            lib.step_fused_f32.argtypes = [
+                # host arrays: float-table pointers, int-table pointers, sizes
+                ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(ci),
+                cf, cf,  # delta_t, delta_t * lamb
+                vp, vp, ci,  # lanes_in, lanes_out, B
+                cf, ci, ci, ci,  # x_tol, max_iter, chord_iters, pivot
+                vp,  # stream
+            ]
+            lib.step_fused_f32.restype = ci
             _lib = lib
     return _lib

@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .power_flow import cmul as _cmul
 from .tree_nr import build_tree_info
 
 # Column layout of the per-slot static table ``ycols [S, 8]``.
@@ -47,6 +48,17 @@ _YC_HASPAR, _YC_PAD = 6, 7  # non-slack-parent mask; pad-slot mask
 
 # Launches of the CUDA kernel in this process (one per successful launch).
 KERNEL_LAUNCHES = 0
+
+
+def tree_nr_flops_per_lane(S: int, n_iter: int) -> int:
+    """FLOPs one lane of the tree-NR solve needs for ``n_iter`` NR steps,
+    counted from ``csrc/tree_nr.cu`` (transcendentals and divides count 1,
+    compares and selects 0; each slot pushes to at most one parent).  Per
+    slot: one mismatch evaluation 39, one NR step 173 (Jacobian blocks 108,
+    elimination and Schur push 49, back substitution 14, update 2).  The
+    JAX package's ``tree_pallas_flops_per_lane`` over-counts the current
+    kernel (it still charges a removed U rebuild), so it is not reused."""
+    return S * (39 + n_iter * (173 + 39))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -207,10 +219,6 @@ class DeviceSchedule:
             slot_sel=torch.as_tensor(np.where(sched.slot_busm1 >= 0, sched.slot_busm1, m), device=device),
             busm1_slot=torch.as_tensor(sched.busm1_slot, device=device),
         )
-
-
-def _cmul(ar, ai, br, bi):
-    return ar * br - ai * bi, ar * bi + ai * br
 
 
 def _blocks(a, b, wre, wim, ure, uim, t1r=None, t1i=None):

@@ -161,3 +161,20 @@ def test_port_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_check_config_equals_jax():
+    for env in ("anm6easy", "feeder33"):
+        assert check.CHECK_CONFIG[env] == jcheck.CHECK_CONFIG[env]
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    from gym_anm_tpu_torch.core import state
+    from gym_anm_tpu_torch.envs import feeder33
+    from gym_anm_tpu_torch.envs.anm6 import anm6_easy
+
+    for fn in (anm6_easy.make_core, feeder33.make_core, state.zeros_state, state.sim_state_from_numpy,
+               state.env_state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

@@ -9,12 +9,17 @@ and inside their bounds."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from gym_anm_tpu.envs.anm6.anm6_easy import make_core as jax_make_core
 
 from gym_anm_tpu_torch.core.state import SIM_FIELDS, env_state_from_numpy
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import _get_gen_time_series, _get_load_time_series, make_core
+
+# Each pytest-xdist worker would otherwise run its own intra-op pool on every
+# core; one thread per worker keeps the suite from oversubscribing the CPU.
+torch.set_num_threads(1)
 
 
 def _inputs(core, B, seed):
@@ -45,7 +50,7 @@ def _assert_out_close(out, jout):
 def test_env_core_matches_jax_f64():
     # A 3-iteration power-flow budget leaves some step solves unconverged,
     # so both live and terminated lanes occur.
-    core = make_core(dtype=torch.float64, pf_max_iter=3)
+    core = make_core(dtype=torch.float64, device="cpu", pf_max_iter=3)
     jcore = jax_make_core(dtype=jnp.float64, pf_max_iter=3)
     B = 128
     s0, actions = _inputs(core, B, 0)
@@ -69,7 +74,7 @@ def test_env_core_matches_jax_f64():
     # The JAX state carried into the port (its arrays as numpy) steps alike.
     carried = env_state_from_numpy(
         {k: np.asarray(getattr(jes.sim, k)) for k in SIM_FIELDS},
-        np.asarray(jes.aux), np.asarray(jes.terminated), np.asarray(jes.state_vec), dtype=torch.float64,
+        np.asarray(jes.aux), np.asarray(jes.terminated), np.asarray(jes.state_vec), device="cpu", dtype=torch.float64,
     )
     es2, out2, _, jout2 = _step_both(core, jcore, carried, jes, actions[1])
     _assert_out_close(out2, jout2)
@@ -80,7 +85,7 @@ def test_env_core_matches_jax_f64():
 
 
 def test_init_state_on_profiles_and_in_bounds():
-    core = make_core(dtype=torch.float32)
+    core = make_core(dtype=torch.float32, device="cpu")
     s0 = core.init_state_fn(torch.Generator().manual_seed(1), 4096).numpy().astype(np.float64)
     loads, gens = _get_load_time_series(), _get_gen_time_series()
     t0 = s0[:, -1].astype(int)
@@ -101,3 +106,74 @@ def test_init_state_on_profiles_and_in_bounds():
     # Every sampled state converges (the task's reset budget is 1).
     es, out = core.reset(torch.Generator().manual_seed(2), 256)
     assert not bool(out.failed.any()) and int(out.n_tries.max()) == 1
+
+
+# Each port method against the JAX method it reproduces on this CPU (the JAX
+# package runs "pallas"/"fused" as its scan solver and "fused_hybrid"/
+# "xla_hybrid" as its hybrid solver off the TPU).
+JAX_METHOD = {
+    "tree": "tree", "pallas": "scan", "fused": "scan", "scan": "scan", "while": "while",
+    "hybrid": "hybrid", "fused_hybrid": "hybrid", "xla_hybrid": "hybrid",
+}
+_jax_trajectories = {}
+
+
+def _jax_trajectory(env, method, ref, T):
+    key = (env, JAX_METHOD[method])
+    if key not in _jax_trajectories:
+        from gym_anm_tpu import check as jcheck
+        from gym_anm_tpu.envs.feeder33 import make_core as jax_f33_make_core
+
+        jmake = {"anm6easy": jax_make_core, "feeder33": jax_f33_make_core}[env]
+        jcore = jmake(dtype=jnp.float64, pf_method=key[1])
+        traj = jcheck.rollout_given(jcore, ref["s0"], ref["actions"][:T], ref["vars"][:T])
+        _jax_trajectories[key] = [np.asarray(x) for x in traj]
+    return _jax_trajectories[key]
+
+
+@pytest.mark.parametrize(
+    "env, method",
+    [("anm6easy", m) for m in ("pallas", "hybrid", "fused", "fused_hybrid", "scan", "while", "xla_hybrid")]
+    + [("feeder33", m) for m in ("pallas", "hybrid", "fused", "fused_hybrid")],
+)
+def test_env_core_methods_match_jax_f64(env, method):
+    """A few steps of the committed reference inputs through the port's core
+    and the JAX package's, in float64, with the task's calibrated budgets."""
+    from gym_anm_tpu_torch import check
+
+    ref = check.load_reference(env)
+    T = 4
+    core = check.task_make_core(env)(dtype=torch.float64, device="cpu", pf_method=method)
+    sv, rw, tm = check.rollout_given(core, ref["s0"], ref["actions"][:T], ref["vars"][:T])
+    jsv, jrw, jtm = _jax_trajectory(env, method, ref, T)
+    np.testing.assert_array_equal(tm.numpy(), jtm)
+    np.testing.assert_allclose(sv.numpy(), jsv, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(rw.numpy(), jrw, rtol=0, atol=1e-7)
+
+
+def test_feeder33_hooks():
+    from gym_anm_tpu_torch.envs.feeder33 import make_core as f33_make_core, pf_max_iter_for
+
+    core = f33_make_core(dtype=torch.float32, device="cpu")
+    spec = core.spec
+    assert core.max_iter == 10 and pf_max_iter_for("hybrid") == 6 and pf_max_iter_for("pallas") == 15
+    g = torch.Generator().manual_seed(0)
+    s0 = core.init_state_fn(g, 512).numpy().astype(np.float64)
+    assert s0.shape == (512, core.expected_s0_n)
+    t0 = s0[:, -1]
+    assert np.array_equal(t0, np.round(t0)) and t0.min() >= 0 and t0.max() <= 95
+    daily = 0.75 + 0.25 * np.sin(2 * np.pi * (t0 / 96.0 - 0.3))
+    load_pos, gen_pos = np.asarray(spec.load_pos), np.asarray(spec.gen_pos)
+    frac = s0[:, load_pos] / (-np.asarray(spec.load_p_min) * spec.baseMVA * daily[:, None])
+    assert -0.9 - 1e-5 <= frac.min() and frac.max() <= -0.3 + 1e-5
+    np.testing.assert_allclose(s0[:, spec.n_dev + load_pos], 0.25 * s0[:, load_pos], rtol=1e-6)
+    pots = s0[:, gen_pos] / (np.asarray(spec.gen_p_max) * spec.baseMVA)
+    assert 0.2 - 1e-6 <= pots.min() and pots.max() <= 1.0 + 1e-6
+    np.testing.assert_array_equal(s0[:, 2 * spec.n_dev + spec.n_des : -1], s0[:, gen_pos])
+    soc = s0[:, 2 * spec.n_dev : 2 * spec.n_dev + spec.n_des] / (np.asarray(spec.des_soc_max) * spec.baseMVA)
+    assert soc.min() >= 0.0 and soc.max() <= 1.0 and soc.std() > 0.2
+    vars = core.next_vars_fn(torch.tensor(s0, dtype=torch.float32), g).numpy()
+    assert vars.shape == (512, core.expected_vars_n)
+    np.testing.assert_array_equal(vars[:, -1], (t0 + 1) % 96)
+    es, out = core.reset(g, 128)
+    assert not bool(out.failed.any())

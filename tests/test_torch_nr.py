@@ -1,0 +1,187 @@
+"""The port's dense Newton-Raphson solver (the plain twin of the CUDA kernel)
+against the JAX package's.
+
+* ``nr_core_plain`` in float64 against ``gym_anm_tpu.ops.pallas_nr.nr_core``
+  (the TPU kernel's body, plain jnp) for pivot {False, True} x chord
+  {0, 16}: identical convergence flags, the same iteration counts on
+  converged lanes, V and I to 1e-9.
+* ``nr_core_plain`` in float32 against the TPU kernel ``solve_pfe_pallas``
+  in Pallas interpret mode, with the tree kernel's agreement rule
+  (summation orders differ, so lanes on the criterion may stop a step or
+  two apart).
+* The dispatch: a CPU tensor runs the plain twin; the kernel wrapper refuses
+  what the kernel does not take.
+* The pivoted elimination, and the kernel's FLOP count against the
+  operations the plain twin performs.
+
+The CUDA kernel itself is tested on a GPU by ``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from gym_anm_tpu.core.grid import build_grid as jax_build_grid
+from gym_anm_tpu.envs.anm6.network import network as jax_anm6_network
+from gym_anm_tpu.envs.feeder33 import _NETWORK as JAX_F33
+from gym_anm_tpu.ops.pallas_nr import nr_core, solve_pfe_pallas
+from gym_anm_tpu.ops.power_flow import flat_start_jacobian_inv_np as jax_j0inv
+
+from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
+from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
+from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
+from gym_anm_tpu_torch.ops import nr_cuda
+from gym_anm_tpu_torch.ops.nr_cuda import nr_core_plain, solve_pfe_nr
+
+# Each pytest-xdist worker would otherwise run its own intra-op pool on every
+# core; one thread per worker keeps the suite from oversubscribing the CPU.
+torch.set_num_threads(1)
+
+GRIDS = {
+    "anm6": (anm6_network, jax_anm6_network, 0.3),
+    "feeder33": (make_feeder_network(), JAX_F33, 0.05),
+}
+
+
+def _case(name, B, seed, dtype):
+    net, jnet, amp = GRIDS[name]
+    spec, _ = build_grid(net, 0.25, 100, dtype=dtype)
+    jspec, _ = jax_build_grid(jnet, 0.25, 100, dtype=dtype)
+    g = GridTensors.from_spec(spec, "cpu", torch.float64 if dtype == np.float64 else torch.float32)
+    rng = np.random.default_rng(seed)
+    m = spec.n_bus - 1
+    p = rng.uniform(-amp, amp, (m, B)).astype(dtype)
+    q = rng.uniform(-0.6 * amp, 0.6 * amp, (m, B)).astype(dtype)
+    return g, jspec, p, q
+
+
+@pytest.mark.parametrize(
+    "name, chord, pivot",
+    [("anm6", 0, False), ("anm6", 0, True), ("anm6", 16, False), ("anm6", 16, True), ("feeder33", 16, False)],
+)
+def test_plain_f64_matches_nr_core(name, chord, pivot):
+    g, jspec, p, q = _case(name, 48, 0, np.float64)
+    p[:, :2] *= 30.0  # a few lanes that do not converge
+    kw = dict(x_tol=1e-9, max_iter=8, chord_iters=chord, pivot=pivot)
+    J0 = jax_j0inv(jspec.Y_re, jspec.Y_im)
+    ours = nr_core_plain(g.Y_re, g.Y_im, g.J0inv, torch.tensor(p), torch.tensor(q), **kw)
+    theirs = jax.jit(lambda p, q: nr_core(jspec.Y_re, jspec.Y_im, J0, p, q, **kw))(p, q)
+    conv = np.asarray(theirs[4]) <= 1e-9
+    assert 0.5 < conv.mean() < 1.0
+    np.testing.assert_array_equal(ours[4].numpy() <= 1e-9, conv)
+    # Iteration counts agree on converged lanes; a diverging lane's
+    # trajectory amplifies rounding and may go NaN one step apart.
+    np.testing.assert_array_equal(ours[5].numpy()[conv], np.asarray(theirs[5])[conv])
+    for a, b in zip(ours[:4], theirs[:4]):
+        np.testing.assert_allclose(a.numpy()[:, conv], np.asarray(b)[:, conv], rtol=0, atol=1e-9)
+
+
+def test_plain_f32_matches_pallas_kernel_interpret():
+    g, jspec, p, q = _case("anm6", 128, 0, np.float32)
+    x_tol, max_iter = 1e-5, 10
+    with pltpu.force_tpu_interpret_mode():
+        vr_p, vi_p, _, it_p, c_p = solve_pfe_pallas(
+            jspec.Y_re, jspec.Y_im, jnp.asarray(p.T), jnp.asarray(q.T), x_tol=x_tol, max_iter=max_iter, tile=128
+        )
+    vr, vi, _, it, c = solve_pfe_nr(g.Y_re, g.Y_im, g.J0inv, torch.tensor(p.T), torch.tensor(q.T), x_tol, max_iter)
+    # The tree kernel's rule (tests/test_torch_tree.py): in float32 the
+    # mismatch floor of I = YV sits near x_tol, so a lane on the criterion
+    # may stop a step or two apart under another summation order.
+    c, cp = c.numpy(), np.asarray(c_p)
+    assert (c == cp).mean() >= 0.99 and c.mean() > 0.9
+    both = c & cp
+    np.testing.assert_allclose(vr.numpy()[both], np.asarray(vr_p)[both], atol=5e-5)
+    np.testing.assert_allclose(vi.numpy()[both], np.asarray(vi_p)[both], atol=5e-5)
+    dit = np.abs(it.numpy() - np.asarray(it_p))[both]
+    assert (dit <= 1).mean() >= 0.97 and dit.max() <= 4
+
+
+def test_cpu_dispatch_runs_plain_and_kernel_wrapper_refuses():
+    g, _, p, q = _case("anm6", 16, 3, np.float32)
+    before = nr_cuda.KERNEL_LAUNCHES
+    out = solve_pfe_nr(g.Y_re, g.Y_im, g.J0inv, torch.tensor(p.T), torch.tensor(q.T), chord_iters=16, pivot=True)
+    assert nr_cuda.KERNEL_LAUNCHES == before
+    assert out[0].shape == (16, 6) and out[2].dtype == torch.float32 and out[3].dtype == torch.int32
+    assert bool(out[4].all())
+    with pytest.raises(ValueError, match="CUDA"):
+        nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, torch.tensor(p), torch.tensor(q))
+    assert nr_cuda.KERNEL_LAUNCHES == before
+
+
+def test_plain_freezes_nan_and_singular_lanes():
+    g, _, p, q = _case("anm6", 8, 4, np.float32)
+    p[0, 1] = np.nan
+    p[:, 2] *= 1e6  # a collapse: diverges to inf/NaN, never "converged"
+    vr, vi, ir, ii, diff, it = nr_core_plain(
+        g.Y_re, g.Y_im, g.J0inv, torch.tensor(p), torch.tensor(q), x_tol=1e-5, max_iter=10, chord_iters=0
+    )
+    assert np.isnan(diff[1].item()) and it[1].item() == 0
+    assert not diff[2].item() <= 1e-5
+    assert bool((diff[3:] <= 1e-5).all())
+
+
+def test_flops_per_lane_equals_jax():
+    from gym_anm_tpu.ops.pallas_nr import nr_flops_per_lane as jax_flops
+
+    for args in ((6, 10, 0, True), (33, 6, 16, False), (141, 3, 2, True)):
+        assert nr_cuda.nr_flops_per_lane(*args) == jax_flops(*args[:3], pivot=args[3])
+
+
+def test_pivoted_elimination_solves():
+    rng = np.random.default_rng(3)
+    n, B = 7, 16
+    A = rng.normal(size=(n, n, B))
+    A[0, 0, :4] = 0.0  # needs a row exchange
+    b = rng.normal(size=(n, B))
+    ref = np.linalg.solve(np.moveaxis(A, -1, 0), np.moveaxis(b, -1, 0)[..., None])[..., 0].T
+    Ab = torch.tensor(np.concatenate([A, b[:, None, :]], axis=1))
+    np.testing.assert_allclose(nr_cuda._solve_system(Ab, pivot=True).numpy(), ref, rtol=1e-9, atol=1e-9)
+    # A singular lane gives inf/NaN, no exception.
+    A[:, :, 5] = 0.0
+    Ab = torch.tensor(np.concatenate([A, b[:, None, :]], axis=1))
+    assert not np.isfinite(nr_cuda._solve_system(Ab, pivot=True).numpy()[:, 5]).all()
+
+
+class _CountArithmetic(TorchDispatchMode):
+    """Counts the floating-point adds, subtracts, multiplies, divides, square
+    roots, sines and cosines the dispatched ops perform (one per output
+    element)."""
+
+    aten = torch.ops.aten
+    OPS = {aten.add, aten.sub, aten.mul, aten.div, aten.sqrt, aten.sin, aten.cos}
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in self.OPS and out.is_floating_point():
+            self.n += out.numel()
+        return out
+
+
+@pytest.mark.parametrize(
+    "name, chord, pivot", [("anm6", 0, False), ("anm6", 16, True), ("feeder33", 0, True)]
+)
+def test_kernel_flops_count_the_plain_twins_operations(name, chord, pivot):
+    """On one lane the plain twin performs exactly the kernel's operations
+    and, per evaluation, per step and per NR step, the few it adds: it forms
+    S and the Jacobian's diagonal term on the slack bus too (6 each) and
+    takes its step twice (2m)."""
+    g, _, p, q = _case(name, 1, 5, np.float64)
+    with _CountArithmetic() as counter:
+        *_, diff, it = nr_core_plain(
+            g.Y_re, g.Y_im, g.J0inv, torch.tensor(p), torch.tensor(q),
+            x_tol=1e-9, max_iter=10, chord_iters=chord, pivot=pivot,
+        )
+    assert diff.item() <= 1e-9
+    n_chord = min(int(it), chord)
+    n_nr = int(it) - n_chord
+    count = nr_cuda.nr_dense_flops_per_lane(g.spec.n_bus, n_nr, n_chord)
+    m = g.spec.n_bus - 1
+    assert counter.n == count + 6 * (1 + int(it)) + 2 * m * int(it) + 6 * n_nr

@@ -1,0 +1,91 @@
+"""The port's plain dense power-flow solver against the JAX package's.
+
+``gym_anm_tpu_torch.ops.power_flow.solve_pfe`` (scan / while / hybrid)
+against ``gym_anm_tpu.ops.power_flow.solve_pfe`` in float64 on the ANM6 and
+feeder33 grids, from injections made with numpy: identical iteration counts
+and convergence flags, V to 1e-9.  Also the host builder
+``flat_start_jacobian_inv_np`` (a copy)."""
+
+import numpy as np
+import pytest
+import torch
+
+from gym_anm_tpu.core.grid import build_grid as jax_build_grid
+from gym_anm_tpu.envs.anm6.network import network as jax_anm6_network
+from gym_anm_tpu.envs.feeder33 import _NETWORK as JAX_F33
+from gym_anm_tpu.envs.feeder141 import _NETWORK as JAX_F141
+from gym_anm_tpu.ops.power_flow import (
+    flat_start_jacobian_inv_np as jax_flat_start_jacobian_inv_np,
+    solve_pfe as jax_solve_pfe,
+)
+
+from gym_anm_tpu_torch.core.grid import build_grid
+from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
+from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network, make_multi_feeder_network
+from gym_anm_tpu_torch.ops.power_flow import flat_start_jacobian_inv_np, solve_pfe
+
+# Each pytest-xdist worker would otherwise run its own intra-op pool on every
+# core; one thread per worker keeps the suite from oversubscribing the CPU.
+torch.set_num_threads(1)
+
+GRIDS = {
+    "anm6": (anm6_network, jax_anm6_network, 0.3),
+    "feeder33": (make_feeder_network(), JAX_F33, 0.05),
+}
+
+
+def _case(name, B, seed):
+    net, jnet, amp = GRIDS[name]
+    spec, _ = build_grid(net, 0.25, 100, dtype=np.float64)
+    jspec, _ = jax_build_grid(jnet, 0.25, 100, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    m = spec.n_bus - 1
+    p = rng.uniform(-amp, amp, (B, m))
+    q = rng.uniform(-0.6 * amp, 0.6 * amp, (B, m))
+    return spec, jspec, p, q
+
+
+@pytest.mark.parametrize("method", ["scan", "while", "hybrid"])
+@pytest.mark.parametrize("name", ["anm6", "feeder33"])
+def test_solve_pfe_matches_jax_f64(name, method):
+    spec, jspec, p, q = _case(name, 48, 1)
+    # A large injection on a few lanes leaves them unconverged (or NaN).
+    p[:3] *= 40.0
+    kw = dict(x_tol=1e-9, max_iter=8, method=method, chord_iters=6)
+    jv = jax_solve_pfe(jspec.Y_re, jspec.Y_im, p, q, **kw)
+    Y = lambda a: torch.tensor(np.asarray(a))
+    v = solve_pfe(Y(spec.Y_re), Y(spec.Y_im), torch.tensor(p), torch.tensor(q), **kw)
+    conv = np.asarray(jv[4])
+    assert 0.5 < conv.mean() < 1.0
+    np.testing.assert_array_equal(v[4].numpy(), conv)
+    np.testing.assert_array_equal(v[3].numpy(), np.asarray(jv[3]))
+    np.testing.assert_allclose(v[0].numpy()[conv], np.asarray(jv[0])[conv], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(v[1].numpy()[conv], np.asarray(jv[1])[conv], rtol=0, atol=1e-9)
+
+
+def test_solve_pfe_chord_only():
+    spec, jspec, p, q = _case("anm6", 4, 2)
+    Y = lambda a: torch.tensor(np.asarray(a))
+    # Chord only (max_iter=0): no NR step, iteration counts are the chord's.
+    kw = dict(x_tol=1e-9, max_iter=0, method="hybrid", chord_iters=30)
+    ours = solve_pfe(Y(spec.Y_re), Y(spec.Y_im), torch.tensor(p), torch.tensor(q), **kw)
+    theirs = jax_solve_pfe(jspec.Y_re, jspec.Y_im, p, q, **kw)
+    np.testing.assert_array_equal(ours[3].numpy(), np.asarray(theirs[3]))
+    np.testing.assert_allclose(ours[0].numpy(), np.asarray(theirs[0]), rtol=0, atol=1e-9)
+    with pytest.raises(ValueError, match="method"):
+        solve_pfe(Y(spec.Y_re), Y(spec.Y_im), torch.tensor(p), torch.tensor(q), method="chord")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize(
+    "net, jnet",
+    [(anm6_network, jax_anm6_network), (make_feeder_network(), JAX_F33), (make_multi_feeder_network(), JAX_F141)],
+    ids=["anm6", "feeder33", "feeder141"],
+)
+def test_flat_start_jacobian_inv_equals_jax(net, jnet, dtype):
+    spec, _ = build_grid(net, 0.25, 100, dtype=dtype)
+    jspec, _ = jax_build_grid(jnet, 0.25, 100, dtype=dtype)
+    ours = flat_start_jacobian_inv_np(spec.Y_re, spec.Y_im)
+    theirs = jax_flat_start_jacobian_inv_np(jspec.Y_re, jspec.Y_im)
+    assert ours.dtype == theirs.dtype == dtype
+    np.testing.assert_array_equal(ours, theirs)

@@ -24,6 +24,10 @@ from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
 from gym_anm_tpu_torch.envs.batched import BatchedEnv
 from gym_anm_tpu_torch.ops import tree_cuda
 
+# Each pytest-xdist worker would otherwise run its own intra-op pool on every
+# core; one thread per worker keeps the suite from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def ref():
@@ -31,7 +35,7 @@ def ref():
 
 
 def test_replay_f64_matches_jax(ref):
-    sv, rw, tm = check.rollout_given(make_core(dtype=torch.float64), ref["s0"], ref["actions"], ref["vars"])
+    sv, rw, tm = check.rollout_given(make_core(dtype=torch.float64, device="cpu"), ref["s0"], ref["actions"], ref["vars"])
     jsv, jrw, jtm = jcheck.rollout_given(jax_make_core(dtype=jnp.float64), ref["s0"], ref["actions"], ref["vars"])
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jtm))
     assert 0.2 < tm.numpy()[-1].mean() < 0.8
@@ -40,7 +44,7 @@ def test_replay_f64_matches_jax(ref):
 
 
 def test_replay_f32_passes_reference_check(ref):
-    core = make_core(dtype=torch.float32)
+    core = make_core(dtype=torch.float32, device="cpu")
     sv, rw, tm = check.rollout_given(core, ref["s0"], ref["actions"], ref["vars"])
     assert sv.dtype == torch.float32 and sv.shape == ref["state_vec"].shape
     res = check.compare_trajectories(
@@ -70,3 +74,24 @@ def test_batched_env_rollout_cpu():
     assert tree_cuda.KERNEL_LAUNCHES == before  # CPU tensors never launch the kernel
     with pytest.raises(ValueError, match="device"):
         BatchedEnv(core, 8, device="meta")
+
+
+@pytest.mark.parametrize(
+    "env, method",
+    [(env, m) for env, cfg in check.CHECK_CONFIG.items() for m in cfg["methods"]],
+)
+def test_check_config_replay_f32_cpu(env, method):
+    """The first 8 steps of each committed reference through each of its
+    check methods in float32 on the CPU (the kernels' plain twins), under the
+    ``check.py`` rule; the full replays run on the card (``chip_smoke.py``)."""
+    data = check.load_reference(env)
+    T = 8
+    kw = check.CHECK_CONFIG[env]["methods"][method]
+    core = check.task_make_core(env)(dtype=torch.float32, device="cpu", pf_method=method, **kw)
+    sv, rw, tm = check.rollout_given(core, data["s0"], data["actions"][:T], data["vars"][:T])
+    res = check.compare_trajectories(
+        {k: data[k][:T] for k in ("state_vec", "reward", "terminated")},
+        {"state_vec": sv.numpy(), "reward": rw.numpy(), "terminated": tm.numpy()},
+    )
+    assert res["pass"], res
+    assert res["term_mismatch_frac"] == 0.0

@@ -1,0 +1,158 @@
+"""The port's whole-transition path (the plain twin of the fused CUDA kernel)
+against the JAX package's.
+
+* ``transition(pf_method="fused")`` in float32 against the JAX package's
+  ``transition(pf_method="fused")`` routed through the TPU kernel
+  ``_step_tile_kernel`` in Pallas interpret mode, with the tolerances of
+  ``tests/test_pallas_step.py``.
+* ``fused_transition_plain`` in float64 against the port's unfused
+  ``"pallas"`` transition on the ANM6 and feeder33 grids, to 1e-9.
+* The dispatch: the semantic downgrade of ``"fused"`` on grids without a
+  storage unit, and the kernel wrapper's refusals on the CPU.
+
+The CUDA kernel itself is tested on a GPU by ``tests/test_torch_cuda.py``.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import gym_anm_tpu.ops.pallas_step as jax_pallas_step
+from gym_anm_tpu.core import transition as jax_T
+from gym_anm_tpu.core.grid import build_grid as jax_build_grid
+from gym_anm_tpu.envs.anm6.network import network as jax_anm6_network
+
+from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
+from gym_anm_tpu_torch.core.state import SIM_FIELDS
+from gym_anm_tpu_torch.core.transition import resolve_solver_path, transition
+from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
+from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
+from gym_anm_tpu_torch.ops import nr_cuda, step_cuda
+
+# Each pytest-xdist worker would otherwise run its own intra-op pool on every
+# core; one thread per worker keeps the suite from oversubscribing the CPU.
+torch.set_num_threads(1)
+
+NETWORKS = {"anm6": anm6_network, "feeder33": make_feeder_network()}
+
+
+def _set_points(spec, B, seed, dtype):
+    """Random set-points inside (and partly outside) the devices' ranges."""
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi: rng.uniform(lo, hi, (B,) + np.shape(lo)).astype(dtype)
+    gen = np.asarray(spec.gen_pos)
+    des = np.asarray(spec.des_pos)
+    q_lo, q_hi = np.asarray(spec.dev_q_min), np.asarray(spec.dev_q_max)
+    return dict(
+        des_soc=u(np.asarray(spec.des_soc_min), np.asarray(spec.des_soc_max)),
+        P_load=u(np.asarray(spec.load_p_min), np.zeros(spec.n_load)),
+        P_pot=u(np.zeros(spec.n_gen), np.asarray(spec.gen_p_max)),
+        P_set_gen=u(np.zeros(spec.n_gen), 1.2 * np.asarray(spec.gen_p_max)),
+        Q_set_gen=u(1.2 * q_lo[gen], 1.2 * q_hi[gen]),
+        P_set_des=u(np.asarray(spec.dev_p_min)[des], np.asarray(spec.dev_p_max)[des]),
+        Q_set_des=u(q_lo[des], q_hi[des]),
+    )
+
+
+def test_fused_matches_pallas_step_kernel_interpret():
+    spec, _ = build_grid(anm6_network, 0.25, 100, dtype=np.float32)
+    jspec, _ = jax_build_grid(jax_anm6_network, 0.25, 100, dtype=np.float32)
+    g = GridTensors.from_spec(spec, "cpu", torch.float32)
+    args = _set_points(spec, 128, 0, np.float32)
+    old = jax_pallas_step.FORCE_INTERPRET
+    jax_pallas_step.FORCE_INTERPRET = True
+    try:
+        assert jax_T.resolve_solver_path(jspec, "fused", args["des_soc"], args["P_load"])[0] == "fused_kernel"
+        with pltpu.force_tpu_interpret_mode():
+            theirs = jax_T.transition(jspec, **{k: jnp.asarray(v) for k, v in args.items()}, pf_method="fused", max_iter=10)
+    finally:
+        jax_pallas_step.FORCE_INTERPRET = old
+    ours = transition(g, **{k: torch.tensor(v) for k, v in args.items()}, pf_method="fused", max_iter=10)
+
+    conv, jconv = ours.pfe_converged.numpy(), np.asarray(theirs.pfe_converged)
+    assert (conv == jconv).mean() >= 0.99 and conv.mean() > 0.9
+    both = conv & jconv
+    for f in SIM_FIELDS[:-1]:
+        a, b = getattr(ours.state, f).numpy()[both], np.asarray(getattr(theirs.state, f))[both]
+        np.testing.assert_allclose(a, b, atol=5e-5, err_msg=f)
+    np.testing.assert_allclose(ours.e_loss.numpy()[both], np.asarray(theirs.e_loss)[both], atol=5e-5)
+    # The penalty amplifies voltage and flow round-off by lamb = 100.
+    np.testing.assert_allclose(ours.penalty.numpy()[both], np.asarray(theirs.penalty)[both], atol=5e-3)
+
+
+@pytest.mark.parametrize("name", ["anm6", "feeder33"])
+def test_fused_plain_matches_unfused_f64(name):
+    spec, _ = build_grid(NETWORKS[name], 0.25, 100, dtype=np.float64)
+    g = GridTensors.from_spec(spec, "cpu", torch.float64)
+    args = {k: torch.tensor(v) for k, v in _set_points(spec, 64, 1, np.float64).items()}
+    for fused, unfused, kw in (("fused", "pallas", {}), ("fused_hybrid", "hybrid", dict(chord_iters=8, nr_pivot=True))):
+        a = transition(g, **args, pf_method=fused, x_tol=1e-9, max_iter=12, **kw)
+        b = transition(g, **args, pf_method=unfused, x_tol=1e-9, max_iter=12, **kw)
+        conv = b.pfe_converged.numpy()
+        assert conv.mean() > 0.5
+        np.testing.assert_array_equal(a.pfe_converged.numpy(), conv)
+        for f in SIM_FIELDS[:-1]:
+            np.testing.assert_allclose(
+                getattr(a.state, f).numpy()[conv], getattr(b.state, f).numpy()[conv], rtol=1e-9, atol=1e-9, err_msg=f
+            )
+        for f in ("reward", "e_loss", "penalty"):
+            np.testing.assert_allclose(getattr(a, f).numpy()[conv], getattr(b, f).numpy()[conv], rtol=1e-9, atol=1e-9)
+
+
+def test_dispatch_and_wrapper_refusals():
+    spec, _ = build_grid(anm6_network, 0.25, 100, dtype=np.float32)
+    g = GridTensors.from_spec(spec, "cpu", torch.float32)
+    assert resolve_solver_path(g, "fused") == ("fused_kernel", "fused")
+    assert resolve_solver_path(g, "pallas") == ("nr_kernel", "pallas")
+    assert resolve_solver_path(g, "xla_hybrid") == ("torch", "xla_hybrid")
+    assert resolve_solver_path(g, "tree") == ("tree_kernel", "tree")
+    # A grid without a load, a generator and a storage unit runs the fused
+    # methods unfused, as the JAX package does.
+    bare = dataclasses.replace(g, step=None)
+    assert resolve_solver_path(bare, "fused") == ("nr_kernel", "pallas")
+    assert resolve_solver_path(bare, "fused_hybrid") == ("nr_kernel", "hybrid")
+    with pytest.raises(ValueError, match="pf_method"):
+        resolve_solver_path(g, "tree_xla")
+    no_des = dataclasses.replace(spec, n_des=0)
+    assert not step_cuda.fused_transition_supported(no_des)
+    with pytest.raises(ValueError, match="storage"):
+        step_cuda.StepTables.from_spec(no_des, "cpu", torch.float32)
+
+    st = g.step
+    lanes = torch.zeros((sum(st.in_rows), 8))
+    before = step_cuda.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        step_cuda.fused_transition_cuda(st, lanes)
+    assert step_cuda.KERNEL_LAUNCHES == before
+    out = step_cuda.unpack_outputs(st, step_cuda.fused_transition_plain(st, lanes))
+    assert [t.shape[1] for t in out] == list(st.out_rows) and out.dev_p.shape == (8, spec.n_dev)
+
+
+def test_tables_and_flops_follow_jax():
+    from gym_anm_tpu.ops.pallas_step import fused_step_flops_per_lane as jax_flops
+
+    for name, net in NETWORKS.items():
+        spec, _ = build_grid(net, 0.25, 100, dtype=np.float32)
+        st = step_cuda.StepTables.from_spec(spec, "cpu", torch.float32)
+        # The candidate table is the projector's, in the TPU kernel's order:
+        # the feet, then the vertices.
+        proj = GridTensors.from_spec(spec, "cpu", torch.float32).projector
+        feet = [(r, -1) for r, *_ in proj.feet]
+        verts = [(v[0], v[1]) for v in proj.vertices]
+        assert list(st.structure.cand) == feet + verts
+        inc = np.asarray(spec.inc_bus_dev)
+        assert st.structure.devs_at_bus == tuple(tuple(np.nonzero(row)[0]) for row in inc)
+        assert st.structure.positions["des_pos"] == tuple(np.asarray(spec.des_pos))
+        assert list(st.c_args[2]) == [st.dims[k] for k in step_cuda.DIMS]
+        assert step_cuda.fused_step_flops_per_lane(spec, 10, 16, True) == jax_flops(spec, 10, 16, True)
+        # The kernel's own count: its solve plus a part that the iterations
+        # do not change, under the TPU count, which charges every candidate.
+        n = spec.n_bus
+        rest = [step_cuda.step_fused_flops_per_lane(st, k, c) - nr_cuda.nr_dense_flops_per_lane(n, k, c)
+                for k, c in ((0, 0), (3, 0), (2, 16))]
+        assert rest[0] == rest[1] == rest[2] > 0
+        assert rest[0] < jax_flops(spec, 0, 0, True) - nr_cuda.nr_flops_per_lane(n, 0, 0, True)

@@ -39,7 +39,7 @@ def _grids():
 
 
 def _assert_states_close(ours, theirs, tol):
-    theirs = sim_state_from_numpy({k: np.asarray(getattr(theirs, k)) for k in SIM_FIELDS}, dtype=torch.float64)
+    theirs = sim_state_from_numpy({k: np.asarray(getattr(theirs, k)) for k in SIM_FIELDS}, device="cpu", dtype=torch.float64)
     for k in SIM_FIELDS:
         a, b = getattr(ours, k).numpy(), getattr(theirs, k).numpy()
         if k == "pfe_converged":
@@ -81,7 +81,7 @@ def test_transition_rejects_other_methods_and_meshed_grids():
     g, _ = _grids()
     args = {k: torch.tensor(v) for k, v in _set_points(4, 0).items()}
     with pytest.raises(ValueError, match="pf_method"):
-        transition(g, **args, pf_method="scan")
+        transition(g, **args, pf_method="tree_xla")
     meshed = dataclasses.replace(g, tree=None)
     with pytest.raises(ValueError, match="radial"):
         transition(meshed, **args)
