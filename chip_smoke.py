@@ -16,16 +16,23 @@ the port's paths on the card, one JSON line per phase:
    rollout of the task gives.  The rule: converged flags agree on >= 99% of
    lanes; V (K1, K2) or every output field (K3) within 5e-5 on lanes both
    versions converged (the penalty, which scales voltages by lamb, within
-   5e-3); |dn_iter| <= 1 on >= 97% of those lanes.  Times are medians of
-   CUDA-event timings after a warm-up; each row carries the kernel's bound;
+   5e-3); |dn_iter| <= 1 on >= 97% of those lanes.  Each K2/K3 row also
+   says whether it was bit-identical (max |err| 0 and dn_iter 0) and gives
+   the kernel's launch geometry (threads a lane, lanes a block, threads a
+   block, dynamic shared bytes a block, resident blocks an SM).  A kernel's
+   time is the median CUDA-event time of a CUDA graph of 20 launches, per
+   launch (the device's time, not the wrapper's host work); a plain twin's
+   the median of timed calls.  Each row carries the kernel's bound;
 4. parity: ``tests/data/onchip_ref_{anm6easy,feeder33}.npz`` through every
    solver path of ``check.CHECK_CONFIG`` on the card, compared with the
    committed host-float64 trajectories by ``check.compare_trajectories``,
    with the launch count of the kernel each path uses;
-5. rollout: ``BatchedEnv(make_core(pf_method=...), 4096)`` for the tree,
-   pallas and fused paths, one reset and a few 64-step rollouts with
-   uniform random actions; every launch count is set to 0 just before a
-   path runs and read just after, and the path's kernel must have run.
+5. rollout: ``BatchedEnv(make_core(pf_method=...), 4096)`` for ANM6Easy
+   through the tree, pallas and fused paths (one reset and three 64-step
+   rollouts) and for feeder33 through the fused and tree paths (one reset
+   and two 16-step rollouts), with uniform random actions; every launch
+   count is set to 0 just before a path runs and read just after, and the
+   path's kernel must have run once per step.
 
 It exits non-zero, printing no result, when no GPU is available or any
 phase fails.  The line before the last lists the kernels; the last line is
@@ -46,9 +53,12 @@ import numpy as np
 import torch
 
 ROLLOUT_B = 4096
-ROLLOUT_T = 64
-ROLLOUTS = 3
-ROLLOUT_PATHS = ("tree", "pallas", "fused")
+# (env, pf_method, steps a rollout, rollouts): ANM6Easy through each kernel's
+# path, then feeder33, where the dense paths are device-bound.
+ROLLOUT_CASES = (
+    ("anm6easy", "tree", 64, 3), ("anm6easy", "pallas", 64, 3), ("anm6easy", "fused", 64, 3),
+    ("feeder33", "fused", 16, 2), ("feeder33", "tree", 16, 2),
+)
 KERNEL_B = 4096
 # Grids of the tree-kernel check: (name, injection amplitude, x_tol);
 # feeder141 keeps the float32 mismatch-plateau tolerance of its task.
@@ -77,17 +87,26 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def event_ms(fn, launches, trials):
+def event_ms(fn, launches, trials, graph=False):
     """Median over ``trials`` of the CUDA-event time of ``launches`` calls,
-    per call, after one warm-up call."""
+    per call, after one warm-up call.  With ``graph`` the calls are captured
+    once into a CUDA graph and each trial replays it, so the time is the
+    device's alone, not the host's time to issue the calls."""
     fn()
     torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(launches)]
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
     ts = []
     for _ in range(trials):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(launches):
-            fn()
+        run()
         end.record()
         torch.cuda.synchronize()
         ts.append(start.elapsed_time(end) / launches)
@@ -111,6 +130,10 @@ def agreement(conv_k, conv_p, diffs, it_k, it_p):
         "converged_frac": float(conv_k.float().mean()), "converged_agree": float((conv_k == conv_p).float().mean()),
         "max_abs_err": err, "dit_le1_frac": float((dit <= 1).mean()), "dit_max": int(dit.max()),
     }
+
+
+def bit_identical(row):
+    return row["max_abs_err"] == 0.0 and row["dit_max"] == 0
 
 
 def check_agreement(row, atol=V_ATOL):
@@ -169,7 +192,7 @@ def phase_build():
     emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path), "ptxas": ptxas})
 
 
-def _grid(name):
+def make_grid(name):
     from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
     from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
     from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network, make_multi_feeder_network
@@ -178,7 +201,7 @@ def _grid(name):
     return GridTensors.from_spec(build_grid(net, 0.25, 100, dtype=np.float32)[0], "cuda", torch.float32)
 
 
-def _injections(m, amp, seed=0):
+def make_injections(m, amp, seed=0):
     rng = np.random.default_rng(seed)
     p = torch.tensor(rng.uniform(-amp, amp, (m, KERNEL_B)).astype(np.float32), device="cuda")
     q = torch.tensor(rng.uniform(-0.6 * amp, 0.6 * amp, (m, KERNEL_B)).astype(np.float32), device="cuda")
@@ -190,9 +213,9 @@ def phase_tree_vs_plain():
 
     rows = []
     for name, amp, x_tol in TREE_GRIDS:
-        g = _grid(name)
+        g = make_grid(name)
         ds = g.tree
-        p, q = _injections(g.spec.n_bus - 1, amp)
+        p, q = make_injections(g.spec.n_bus - 1, amp)
         zero = torch.zeros((1, KERNEL_B), device="cuda")
         pT = torch.cat([p, zero])[ds.slot_sel].contiguous()
         qT = torch.cat([q, zero])[ds.slot_sel].contiguous()
@@ -208,7 +231,7 @@ def phase_tree_vs_plain():
             "phase": "kernel_vs_plain", "kernel": "tree_nr", "grid": name, "S": S, "levels": len(ds.sched.levels),
             "B": KERNEL_B, "x_tol": x_tol, "mean_iters": float(it_k.float().mean()),
             **agreement(d_k <= x_tol, d_p <= x_tol, [vr_k - vr_p, vi_k - vi_p], it_k, it_p),
-            "ms": event_ms(kern, 20, 5), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+            "ms": event_ms(kern, 20, 5, graph=True), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
         }
         emit(row)
         check_agreement(row)
@@ -221,9 +244,9 @@ def phase_nr_vs_plain():
 
     rows = []
     for name, amp, chord, pivot, max_iter in NR_CASES:
-        g = _grid(name)
+        g = make_grid(name)
         n = g.spec.n_bus
-        p, q = _injections(n - 1, amp)
+        p, q = make_injections(n - 1, amp)
         kw = dict(x_tol=1e-5, max_iter=max_iter, chord_iters=chord, pivot=pivot)
         kern = lambda: nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
         plain = lambda: nr_cuda.nr_core_plain(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
@@ -239,15 +262,17 @@ def phase_nr_vs_plain():
             "phase": "kernel_vs_plain", "kernel": "nr_dense", "grid": name, "n": n, "chord_iters": chord,
             "pivot": pivot, "max_iter": max_iter, "B": KERNEL_B, "mean_iters": float(it_k.float().mean()),
             **agreement(d_k <= 1e-5, d_p <= 1e-5, [vr_k - vr_p, vi_k - vi_p], it_k, it_p),
-            "ms": event_ms(kern, 20, 5), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+            "ms": event_ms(kern, 20, 5, graph=True), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+            "geometry": nr_cuda.nr_dense_geometry(n, chord),
         }
+        row["bit_identical"] = bit_identical(row)
         emit(row)
         check_agreement(row)
         rows.append(row)
     return rows
 
 
-def _step_lanes(core, seed=0):
+def step_lanes(core, seed=0):
     """Transition inputs a rollout of the task gives, packed batch-last."""
     from gym_anm_tpu_torch.envs.batched import BatchedEnv
     from gym_anm_tpu_torch.ops import step_cuda
@@ -267,7 +292,7 @@ def phase_step_vs_plain():
         for method in ("fused", "fused_hybrid"):
             core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method=method)
             st = core.grid.step
-            lanes = _step_lanes(core)
+            lanes = step_lanes(core)
             chord = core.chord_iters if method == "fused_hybrid" else 0
             kw = dict(x_tol=core.x_tol, max_iter=core.max_iter, chord_iters=chord, pivot=core.nr_pivot)
             kern = lambda: step_cuda.fused_transition_cuda(st, lanes, **kw)
@@ -290,8 +315,10 @@ def phase_step_vs_plain():
                 "phase": "kernel_vs_plain", "kernel": "step_fused", "env": env, "pf_method": method,
                 "chord_iters": chord, "max_iter": core.max_iter, "B": KERNEL_B, "mean_iters": float(it_k.mean()),
                 **agree, "penalty_max_abs_err": pen,
-                "ms": event_ms(kern, 20, 5), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+                "ms": event_ms(kern, 20, 5, graph=True), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+                "geometry": step_cuda.step_fused_geometry(st, chord),
             }
+            row["bit_identical"] = bit_identical(row) and pen == 0.0
             emit(row)
             check_agreement(row)
             if pen > PENALTY_ATOL:
@@ -328,11 +355,11 @@ def phase_parity():
                                      % (method, kernel, counts[kernel], T + 1))
 
 
-def phase_rollout(pf_method):
-    from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
+def phase_rollout(env_name, pf_method, T, rollouts):
+    from gym_anm_tpu_torch import check
     from gym_anm_tpu_torch.envs.batched import BatchedEnv
 
-    core = make_core(dtype=torch.float32, device="cuda", pf_method=pf_method)
+    core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda", pf_method=pf_method)
     kernel = path_kernel(core)
     env = BatchedEnv(core, ROLLOUT_B)
     torch.cuda.synchronize()
@@ -342,10 +369,10 @@ def phase_rollout(pf_method):
     torch.cuda.synchronize()
     reset_s = time.perf_counter() - t0
     seconds, rewards, terms = [], [], []
-    for _ in range(ROLLOUTS):
+    for _ in range(rollouts):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        es, (reward, terminated) = env.rollout(es, ROLLOUT_T)
+        es, (reward, terminated) = env.rollout(es, T)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         rewards.append(reward)
@@ -354,18 +381,18 @@ def phase_rollout(pf_method):
 
     reward = torch.cat(rewards)
     obs = env.core.observation(es)
-    if reward.shape != (ROLLOUTS * ROLLOUT_T, ROLLOUT_B) or not bool(torch.isfinite(reward).all()):
-        raise AssertionError("%s rollout rewards are not finite [T, B]" % pf_method)
+    if reward.shape != (rollouts * T, ROLLOUT_B) or not bool(torch.isfinite(reward).all()):
+        raise AssertionError("%s %s rollout rewards are not finite [T, B]" % (env_name, pf_method))
     if obs.shape != (ROLLOUT_B, env.core.obs_n) or not bool(torch.isfinite(obs).all()):
-        raise AssertionError("%s observations are not finite [B, obs_n]" % pf_method)
+        raise AssertionError("%s %s observations are not finite [B, obs_n]" % (env_name, pf_method))
     if bool(first.terminated.any()):
         raise AssertionError("reset left %d lanes terminated" % int(first.terminated.sum()))
-    if counts[kernel] < 1 + ROLLOUTS * ROLLOUT_T:
-        raise AssertionError("the %s path launched %s %d times" % (pf_method, kernel, counts[kernel]))
+    if counts[kernel] < 1 + rollouts * T:
+        raise AssertionError("the %s %s path launched %s %d times" % (env_name, pf_method, kernel, counts[kernel]))
     steady = float(np.median(seconds[1:]))
     emit({
-        "phase": "rollout", "env": "anm6easy", "pf_method": pf_method, "B": ROLLOUT_B, "T": ROLLOUT_T,
-        "rollouts": ROLLOUTS, "reset_s": reset_s, "rollout_s": seconds, "env_steps_per_s": ROLLOUT_B * ROLLOUT_T / steady,
+        "phase": "rollout", "env": env_name, "pf_method": pf_method, "B": ROLLOUT_B, "T": T,
+        "rollouts": rollouts, "reset_s": reset_s, "rollout_s": seconds, "env_steps_per_s": ROLLOUT_B * T / steady,
         "terminated_frac": float(terms[-1][-1].float().mean()), "mean_reward": float(reward.mean()),
         "kernel": kernel, "launches": counts,
     })
@@ -383,7 +410,8 @@ def main() -> int:
         phase_build()
         checks = {"tree_nr": phase_tree_vs_plain(), "nr_dense": phase_nr_vs_plain(), "step_fused": phase_step_vs_plain()}
         phase_parity()
-        launches = dict(phase_rollout(pf) for pf in ROLLOUT_PATHS)
+        runs = [(case[0], phase_rollout(*case)) for case in ROLLOUT_CASES]
+        launches = {kernel: n for env, (kernel, n) in runs if env == "anm6easy"}
     except Exception:
         traceback.print_exc()
         return 1

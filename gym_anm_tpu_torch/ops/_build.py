@@ -28,6 +28,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The fields of a dense kernel's launch geometry, in the order its C
+# function (nr_dense_geometry, step_fused_geometry) writes them.
+GEOMETRY_FIELDS = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes_per_block", "blocks_per_sm")
+
 _lock = threading.Lock()
 _lib = None
 
@@ -111,6 +115,8 @@ def load_library() -> ctypes.CDLL:
                 vp,  # stream
             ]
             lib.nr_dense_solve_f32.restype = ci
+            lib.nr_dense_geometry.argtypes = [ci, ci, ctypes.POINTER(ci)]  # n, chord_iters, out[5]
+            lib.nr_dense_geometry.restype = ci
             lib.step_fused_sizes.argtypes = [ctypes.POINTER(ci)] * 3
             lib.step_fused_sizes.restype = ci
             _check_step_layout(lib)
@@ -123,5 +129,17 @@ def load_library() -> ctypes.CDLL:
                 vp,  # stream
             ]
             lib.step_fused_f32.restype = ci
+            lib.step_fused_geometry.argtypes = [ctypes.POINTER(ci), ci, ctypes.POINTER(ci)]  # dims, chord_iters, out[5]
+            lib.step_fused_geometry.restype = ci
             _lib = lib
     return _lib
+
+
+def read_geometry(fn, *args) -> dict:
+    """Call a kernel's geometry function (``fn(*args, out)``) and name its
+    fields (:data:`GEOMETRY_FIELDS`); raises if the card refuses it."""
+    out = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    rc = fn(*args, out)
+    if rc != 0:
+        raise RuntimeError("launch geometry refused: CUDA error %d" % rc)
+    return dict(zip(GEOMETRY_FIELDS, out))

@@ -33,7 +33,7 @@ import torch
 
 # Launches of the CUDA kernel in this process (one per successful launch).
 KERNEL_LAUNCHES = 0
-# The kernel's per-thread system holds 2(n-1) <= NN_MAX unknowns.
+# The kernel solves systems of 2(n-1) <= NN_MAX unknowns.
 NN_MAX = 64
 
 
@@ -254,6 +254,15 @@ def solve_pfe_nr_cuda(Y_re, Y_im, J0inv, p, q, x_tol=1e-5, max_iter=10, chord_it
         raise RuntimeError("dense-NR kernel launch failed: CUDA error %d" % rc)
     KERNEL_LAUNCHES += 1
     return v_re, v_im, diff, n_iter
+
+
+def nr_dense_geometry(n: int, chord_iters: int = 0) -> dict:
+    """The kernel's launch geometry on the current card for an n-bus grid:
+    threads a lane, lanes a block, threads a block, dynamic shared bytes a
+    block and the blocks one SM keeps resident (``_build.GEOMETRY_FIELDS``)."""
+    from ._build import load_library, read_geometry
+
+    return read_geometry(load_library().nr_dense_geometry, int(n), int(chord_iters))
 
 
 def solve_pfe_nr(Y_re, Y_im, J0inv, p, q, x_tol=1e-5, max_iter=10, chord_iters=0, pivot=False):

@@ -458,6 +458,14 @@ def fused_transition_cuda(st: StepTables, lanes_in, x_tol=1e-5, max_iter=10, cho
     return out
 
 
+def step_fused_geometry(st: StepTables, chord_iters: int = 0) -> dict:
+    """The kernel's launch geometry on the current card for the tables'
+    grid (the fields of ``_build.GEOMETRY_FIELDS``)."""
+    from ._build import load_library, read_geometry
+
+    return read_geometry(load_library().step_fused_geometry, st.c_args[2], int(chord_iters))
+
+
 def pack_inputs(des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des):
     """The ``[B, k]`` lane inputs as one batch-last buffer ``[K_in, B]``."""
     return torch.cat([a.T for a in (des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des)])

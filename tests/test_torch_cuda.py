@@ -6,14 +6,21 @@ has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 * each kernel (tree NR, dense NR, the fused transition) against its plain
-  PyTorch twin on the card, at a batch that is not a multiple of the block
-  size;
-* the wrappers refuse float64 and non-contiguous inputs, and the dense
-  kernels grids beyond their 64-unknown system;
+  PyTorch twin on the card; the dense kernels bit for bit at B in {1, 37,
+  1000}, so that teams and blocks are left partly filled, K2 with pivoting
+  on NaN, infinite and diverging lanes and on systems whose pivot searches
+  meet ties and NaN columns, and K3 on a projection whose two nearest
+  candidates tie;
+* the wrappers refuse float64 and non-contiguous inputs, the dense kernels
+  grids beyond their 64-unknown system, and a launch whose lanes do not fit
+  a block's shared memory raises;
 * the ANM6Easy env core on the GPU (kernel) against the same core on the
   CPU (plain version), from the same initial states and actions, for the
-  tree and the fused paths.
+  tree, pallas and fused paths.
 """
+
+import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -93,24 +100,97 @@ def _agree(conv_k, conv_p, pairs, atol, it_k=None, it_p=None):
         assert float((dit <= 1).float().mean()) >= 0.97 and int(dit.max()) <= 4
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("chord, pivot", [(0, False), (16, True)])
-@pytest.mark.parametrize("name, amp", [("anm6", 0.3), ("feeder33", 0.05)])
-def test_cuda_nr_kernel_matches_plain(name, amp, chord, pivot):
-    _need_cuda()
+def _assert_same(a, b):
+    """Bit for bit, NaN where NaN (+0 and -0 count as equal)."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _dense_grid(name):
     net = {"anm6": anm6_network, "feeder33": make_feeder_network()}[name]
-    g = GridTensors.from_spec(build_grid(net, 0.25, 100, dtype=np.float32)[0], "cuda", torch.float32)
-    rng = np.random.default_rng(1)
-    m, B = g.spec.n_bus - 1, 1000
-    p = torch.tensor(rng.uniform(-amp, amp, (m, B)).astype(np.float32), device="cuda")
-    q = torch.tensor(rng.uniform(-0.6 * amp, 0.6 * amp, (m, B)).astype(np.float32), device="cuda")
-    kw = dict(x_tol=1e-5, max_iter=15, chord_iters=chord, pivot=pivot)
+    return GridTensors.from_spec(build_grid(net, 0.25, 100, dtype=np.float32)[0], "cuda", torch.float32)
+
+
+def _nr_both(g, p, q, **kw):
     before = nr_cuda.KERNEL_LAUNCHES
     vr, vi, d, it = nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
     torch.cuda.synchronize()
     assert nr_cuda.KERNEL_LAUNCHES == before + 1
     pvr, pvi, _, _, pd, pit = nr_cuda.nr_core_plain(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
-    _agree(d <= 1e-5, pd <= 1e-5, [(vr, pvr), (vi, pvi)], 5e-5, it, pit)
+    for a, b in ((vr, pvr), (vi, pvi), (d, pd), (it, pit)):
+        _assert_same(a, b)
+    return d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 1000])
+@pytest.mark.parametrize("chord, pivot", [(0, False), (16, True)])
+@pytest.mark.parametrize("name, amp", [("anm6", 0.3), ("feeder33", 0.05)])
+def test_cuda_nr_kernel_matches_plain(name, amp, chord, pivot, B):
+    _need_cuda()
+    g = _dense_grid(name)
+    rng = np.random.default_rng(1)
+    m = g.spec.n_bus - 1
+    p = torch.tensor(rng.uniform(-amp, amp, (m, B)).astype(np.float32), device="cuda")
+    q = torch.tensor(rng.uniform(-0.6 * amp, 0.6 * amp, (m, B)).astype(np.float32), device="cuda")
+    d = _nr_both(g, p, q, x_tol=1e-5, max_iter=15, chord_iters=chord, pivot=pivot)
+    assert float((d <= 1e-5).float().mean()) > 0.9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chord", [0, 16])
+@pytest.mark.parametrize("name, amp", [("anm6", 0.3), ("feeder33", 0.05)])
+def test_cuda_nr_kernel_pivoted_bad_lanes_match_plain(name, amp, chord):
+    """NaN, infinite and collapsing lanes end unconverged in both versions,
+    with the same NaN or inf, beside healthy lanes of the same teams."""
+    _need_cuda()
+    g = _dense_grid(name)
+    rng = np.random.default_rng(2)
+    m, B = g.spec.n_bus - 1, 45
+    p = rng.uniform(-amp, amp, (m, B)).astype(np.float32)
+    q = rng.uniform(-0.6 * amp, 0.6 * amp, (m, B)).astype(np.float32)
+    p[0, 1] = np.nan
+    q[m - 1, 9] = np.inf
+    p[:, 17] *= 1e6  # a collapse: the Jacobian goes singular, the lane inf/NaN
+    p[:, 30] *= 1e3
+    p[:, 44] = 0.0  # the flat start is already the solution
+    q[:, 44] = 0.0
+    pc, qc = torch.tensor(p, device="cuda"), torch.tensor(q, device="cuda")
+    d = _nr_both(g, pc, qc, x_tol=1e-5, max_iter=10, chord_iters=chord, pivot=True).cpu()
+    bad = [1, 9, 17, 30]
+    assert not bool((d[bad] <= 1e-5).any()) and bool(torch.isnan(d[1]))
+    assert float((d[[b for b in range(B) if b not in bad]] <= 1e-5).float().mean()) > 0.9
+
+
+def _tie_system(n, singular, seed=3):
+    """Y = j Yim with Yim zero on the diagonal and, off it, half +1 and half
+    -1 in each row: the flat-start Jacobian is zero on its diagonal and +-1
+    off it, so the first pivot searches meet ties.  With ``singular`` bus 3
+    is cut off: its column of J is zero, the elimination divides 0 by 0 and
+    every later pivot column is NaN."""
+    rng = np.random.default_rng(seed)
+    Yim = np.zeros((n, n), np.float32)
+    for i in range(n):
+        Yim[i, np.arange(n) != i] = rng.permutation(np.repeat(np.float32([1, -1]), (n - 1) // 2))
+    if singular:
+        Yim[3, :] = 0.0
+        Yim[:, 3] = 0.0
+    m = n - 1
+    t = lambda a: torch.tensor(a, device="cuda")
+    return types.SimpleNamespace(Y_re=t(np.zeros_like(Yim)), Y_im=t(Yim), J0inv=t(np.zeros((2 * m, 2 * m), np.float32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("singular", [False, True])
+@pytest.mark.parametrize("n", [9, 33])  # nn = 16 and 64: both team sizes
+def test_cuda_nr_kernel_pivot_ties_match_plain(n, singular):
+    _need_cuda()
+    g = _tie_system(n, singular)
+    rng = np.random.default_rng(4)
+    p = torch.tensor(rng.uniform(-0.3, 0.3, (n - 1, 40)).astype(np.float32), device="cuda")
+    q = torch.tensor(rng.uniform(-0.2, 0.2, (n - 1, 40)).astype(np.float32), device="cuda")
+    d = _nr_both(g, p, q, x_tol=1e-5, max_iter=6, chord_iters=0, pivot=True)
+    if singular:
+        assert bool(torch.isnan(d).all())
 
 
 def _step_lanes(core, B, seed):
@@ -122,23 +202,56 @@ def _step_lanes(core, B, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 1000])
 @pytest.mark.parametrize("chord", [0, 16])
 @pytest.mark.parametrize("env", ["anm6easy", "feeder33"])
-def test_cuda_step_kernel_matches_plain(env, chord):
+def test_cuda_step_kernel_matches_plain(env, chord, B):
     _need_cuda()
     core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method="fused")
     st = core.grid.step
-    lanes = _step_lanes(core, 1000, 2)
+    lanes = _step_lanes(core, B, 2)
     kw = dict(x_tol=1e-5, max_iter=15, chord_iters=chord)
     before = step_cuda.KERNEL_LAUNCHES
     k = step_cuda.unpack_outputs(st, step_cuda.fused_transition_cuda(st, lanes, **kw))
     torch.cuda.synchronize()
     assert step_cuda.KERNEL_LAUNCHES == before + 1
     p = step_cuda.unpack_outputs(st, step_cuda.fused_transition_plain(st, lanes, **kw))
-    fields = [f for f in k._fields if f not in ("penalty", "n_iter")]
-    conv_k, conv_p = k.diff[:, 0] <= 1e-5, p.diff[:, 0] <= 1e-5
-    _agree(conv_k, conv_p, [(getattr(k, f).T, getattr(p, f).T) for f in fields], 5e-5, k.n_iter[:, 0], p.n_iter[:, 0])
-    _agree(conv_k, conv_p, [(k.penalty.T, p.penalty.T)], 5e-3)
+    for f in k._fields:
+        _assert_same(getattr(k, f), getattr(p, f))
+    assert float((k.diff <= 1e-5).float().mean()) > 0.9
+
+
+@pytest.mark.gpu
+def test_cuda_step_kernel_projection_tie_matches_plain():
+    """The first generator's polytope becomes a roof y <= R -+ 1e-6 x over a
+    box, with a NaN normal and inactive rows.  The roof's apex is a vertex
+    of two nearly parallel rows, which the projection rejects, so a set-point
+    (0, y > R) lies exactly as far from the feet onto the two sides, (+-x,
+    ~R): the first side's foot, x > 0, must win in the kernel as in the
+    plain twin's sequential scan."""
+    _need_cuda()
+    core = make_core(torch.float32, "cuda", pf_method="fused")
+    spec = core.grid.spec
+    R, inf, nan = 0.3, np.inf, np.nan
+    G, h0 = np.array(spec.gen_G), np.array(spec.gen_h0)
+    G[0, :9] = [[-1, 0], [-1e-6, 1], [1, 0], [1e-6, 1], [0, -1], [nan, nan], [0, 0], [1, 1], [0, 0]]
+    h0[0, [0, 1, 3, 4, 5]] = [1.0, R, R, 1.0, 1.0]
+    h0[0, 6:] = inf
+    st = step_cuda.StepTables.from_spec(dataclasses.replace(spec, gen_G=G, gen_h0=h0), "cuda", torch.float32)
+    B, roof = 100, slice(0, 40)
+    lanes = _step_lanes(core, B, 5).clone()
+    n_des, n_load, n_gen = st.dims["n_des"], st.dims["n_load"], st.dims["n_gen"]
+    ppot = n_des + n_load
+    lanes[ppot, roof] = st.f["genc"][0, 1]  # the potential at p_max: the cap row stays far
+    lanes[ppot + n_gen, roof] = 0.0  # P set-point
+    lanes[ppot + 2 * n_gen, roof] = torch.linspace(R + 0.1, R + 2.0, 40, device="cuda")  # Q set-point
+    kw = dict(x_tol=1e-5, max_iter=10)
+    k = step_cuda.unpack_outputs(st, step_cuda.fused_transition_cuda(st, lanes, **kw))
+    p = step_cuda.unpack_outputs(st, step_cuda.fused_transition_plain(st, lanes, **kw))
+    for f in k._fields:
+        _assert_same(getattr(k, f), getattr(p, f))
+    gen_p = k.dev_p[roof, st.structure.positions["gen_pos"][0]]
+    assert bool(((gen_p > 0) & (gen_p < 1e-4)).all())
 
 
 @pytest.mark.gpu
@@ -167,6 +280,15 @@ def test_cuda_dense_kernels_refuse_what_they_do_not_take():
     g64 = GridTensors.from_spec(build_grid(anm6_network, 0.25, 100, dtype=np.float64)[0], "cuda", torch.float64)
     with pytest.raises(TypeError):
         step_cuda.fused_transition_cuda(g64.step, lanes.double())
+    # Sizes whose lane region (dev_p, dev_q for 60k devices) exceeds a
+    # block's shared memory: the geometry and the launch are refused.
+    dims = list(st.c_args[2])
+    dims[step_cuda.DIMS.index("d")] = 60000
+    huge = dataclasses.replace(st, c_args=st.c_args[:2] + ((type(st.c_args[2]))(*dims),))
+    with pytest.raises(RuntimeError, match="refused"):
+        step_cuda.step_fused_geometry(huge)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        step_cuda.fused_transition_cuda(huge, lanes)
     assert (nr_cuda.KERNEL_LAUNCHES, step_cuda.KERNEL_LAUNCHES) == before
 
 
@@ -174,9 +296,12 @@ def test_cuda_dense_kernels_refuse_what_they_do_not_take():
 @pytest.mark.parametrize(
     # Two float32 solves converged to x_tol = 1e-5 p.u. may sit a few x_tol
     # apart, i.e. a few 1e-3 MW/MVAr in the state vector (baseMVA = 100).
-    # The fused path's kernel and CPU twin also differ in the projection and
-    # flows, and its slack power has been seen 1.6e-3 MVAr apart on one lane.
-    "pf_method, counter, atol", [("tree", tree_cuda, 1e-3), ("fused", step_cuda, 5e-3)], ids=["tree", "fused"]
+    # The dense NR's slack power (pallas, fused) has been seen 1.6e-3 MVAr
+    # apart on one lane; the fused path's kernel and CPU twin also differ in
+    # the projection and flows.
+    "pf_method, counter, atol",
+    [("tree", tree_cuda, 1e-3), ("pallas", nr_cuda, 5e-3), ("fused", step_cuda, 5e-3)],
+    ids=["tree", "pallas", "fused"],
 )
 def test_cuda_env_core_matches_cpu(pf_method, counter, atol):
     _need_cuda()
