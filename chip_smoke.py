@@ -7,32 +7,39 @@ the port's paths on the card, one JSON line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 is off;
 2. build: one ``nvcc`` call for the three kernels, with the seconds it took
-   and each kernel's registers, stack (local memory) and spills;
+   and each kernel instance's registers, stack (local memory) and spills;
+   a tree-NR instance that spills or keeps a frame over 32 bytes fails;
 3. kernel vs plain, each kernel against its plain PyTorch twin at B=4096
    float32: the tree-NR kernel (K1) on the ANM6, feeder33 and feeder141
-   grids; the dense-NR kernel (K2) on ANM6 and feeder33 with (chord 0,
-   pivot off) and (chord 16, pivot on); the fused-transition kernel (K3) on
-   ANM6 and feeder33 for ``fused`` and ``fused_hybrid``, from inputs a
-   rollout of the task gives.  The rule: converged flags agree on >= 99% of
-   lanes; V (K1, K2) or every output field (K3) within 5e-5 on lanes both
-   versions converged (the penalty, which scales voltages by lamb, within
-   5e-3); |dn_iter| <= 1 on >= 97% of those lanes.  Each K2/K3 row also
-   says whether it was bit-identical (max |err| 0 and dn_iter 0) and gives
-   the kernel's launch geometry (threads a lane, lanes a block, threads a
-   block, dynamic shared bytes a block, resident blocks an SM).  A kernel's
-   time is the median CUDA-event time of a CUDA graph of 20 launches, per
-   launch (the device's time, not the wrapper's host work); a plain twin's
-   the median of timed calls.  Each row carries the kernel's bound;
-4. parity: ``tests/data/onchip_ref_{anm6easy,feeder33}.npz`` through every
-   solver path of ``check.CHECK_CONFIG`` on the card, compared with the
-   committed host-float64 trajectories by ``check.compare_trajectories``,
-   with the launch count of the kernel each path uses;
+   grids, each from the flat start and warm-started (the solved V of a
+   nearby problem, its first lanes zeroed so that they flat-start); the
+   dense-NR kernel (K2) on ANM6 and feeder33 with (chord 0, pivot off) and
+   (chord 16, pivot on); the fused-transition kernel (K3) on ANM6 and
+   feeder33 for ``fused`` and ``fused_hybrid``, from inputs a rollout of the
+   task gives.  The rule: converged flags agree on >= 99% of lanes; V (K1,
+   K2) or every output field (K3) within 5e-5 on lanes both versions
+   converged (the penalty, which scales voltages by lamb, within 5e-3);
+   |dn_iter| <= 1 on >= 97% of those lanes.  Each row also says whether it
+   was bit-identical (max |err| 0 and dn_iter 0) and gives the kernel's
+   launch geometry (threads a lane, lanes a block, threads a block, dynamic
+   shared bytes a block, resident blocks an SM); K1 rows carry their
+   instance's ptxas figures.  A kernel's time is the median CUDA-event time
+   of a CUDA graph of 20 launches, per launch (the device's time, not the
+   wrapper's host work); a plain twin's the median of timed calls.  Each row
+   carries the kernel's bound;
+4. parity: ``tests/data/onchip_ref_{anm6easy,feeder33,feeder141}.npz``
+   through every solver path of ``check.CHECK_CONFIG`` on the card, compared
+   with the committed host-float64 trajectories by
+   ``check.compare_trajectories``, with the launch count of the kernel each
+   path uses;
 5. rollout: ``BatchedEnv(make_core(pf_method=...), 4096)`` for ANM6Easy
    through the tree, pallas and fused paths (one reset and three 64-step
-   rollouts) and for feeder33 through the fused and tree paths (one reset
-   and two 16-step rollouts), with uniform random actions; every launch
-   count is set to 0 just before a path runs and read just after, and the
-   path's kernel must have run once per step.
+   rollouts), for feeder33 through the fused and tree paths and for
+   feeder141 through the tree path (one reset and two 16-step rollouts),
+   and for ANM6Easy through the tree path warm-started (one reset and two
+   64-step rollouts), with uniform random actions; every launch count is
+   set to 0 just before a path runs and read just after, and the path's
+   kernel must have run once per step.
 
 It exits non-zero, printing no result, when no GPU is available or any
 phase fails.  The line before the last lists the kernels; the last line is
@@ -44,6 +51,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -53,17 +61,21 @@ import numpy as np
 import torch
 
 ROLLOUT_B = 4096
-# (env, pf_method, steps a rollout, rollouts): ANM6Easy through each kernel's
-# path, then feeder33, where the dense paths are device-bound.
+# (env, pf_method, steps a rollout, rollouts[, warm_start]): ANM6Easy
+# through each kernel's path, then feeder33, where the dense paths are
+# device-bound, feeder141 through its one path, and ANM6Easy warm-started.
 ROLLOUT_CASES = (
     ("anm6easy", "tree", 64, 3), ("anm6easy", "pallas", 64, 3), ("anm6easy", "fused", 64, 3),
-    ("feeder33", "fused", 16, 2), ("feeder33", "tree", 16, 2),
+    ("feeder33", "fused", 16, 2), ("feeder33", "tree", 16, 2), ("feeder141", "tree", 16, 2),
+    ("anm6easy", "tree", 64, 2, True),
 )
 KERNEL_B = 4096
 # Grids of the tree-kernel check: (name, injection amplitude, x_tol);
 # feeder141 keeps the float32 mismatch-plateau tolerance of its task.
 TREE_GRIDS = (("anm6", 0.3, 1e-5), ("feeder33", 0.05, 1e-5), ("feeder141", 0.02, 3e-5))
 TREE_MAX_ITER = 12
+# Lanes of the warm rows whose warm point is zeroed (they flat-start).
+WARM_ZEROED = 5
 # Dense-NR checks: (grid, amplitude, chord_iters, pivot, max_iter = the task's budget for that path).
 NR_CASES = (
     ("anm6", 0.3, 0, False, 10), ("anm6", 0.3, 16, True, 6),
@@ -180,6 +192,31 @@ def phase_device():
     return smi
 
 
+def ptxas_by_kernel(log):
+    """Registers, stack frame and spill bytes of each kernel instance in
+    ``nvcc -Xptxas -v`` output, keyed by the kernel and its size class's
+    template arguments (``"tree_nr_kernel<8,16>"``: 8 threads a lane, at
+    most 16 lanes a block)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            base = re.search(r"(tree_nr_kernel|nr_dense_kernel|step_fused_kernel)", name)
+            args = re.search(r"SizeClassILi(\d+)ELi(\d+)E", name)
+            cur = out.setdefault("%s<%s>" % (base.group(1) if base else name, ",".join(args.groups()) if args else ""), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from gym_anm_tpu_torch.ops import _build
 
@@ -187,9 +224,13 @@ def phase_build():
     path, log = _build.build()
     _build.load_library()
     seconds = time.perf_counter() - t0
-    keep = ("Compiling entry function", "registers", "spill", "stack frame")
-    ptxas = [l.strip() for l in log.splitlines() if any(k in l for k in keep)]
-    emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path), "ptxas": ptxas})
+    by_kernel = ptxas_by_kernel(log)
+    emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path), "ptxas": by_kernel})
+    for name, info in by_kernel.items():
+        if name.startswith("tree_nr_kernel") and (info.get("spill_stores", 0) or info.get("spill_loads", 0)
+                                                  or info.get("stack_frame", 0) > 32):
+            raise AssertionError("%s spills or keeps a stack frame over 32 bytes: %s" % (name, info))
+    return by_kernel
 
 
 def make_grid(name):
@@ -208,10 +249,13 @@ def make_injections(m, amp, seed=0):
     return p, q
 
 
-def phase_tree_vs_plain():
+def tree_cases(warm=True):
+    """``(grid, x_tol, ds, pT, qT, warm)`` for each tree-kernel row: each grid
+    of :data:`TREE_GRIDS` cold, then (with ``warm``) warm.  The warm point is
+    the solved V of a nearby problem (0.9x the injections) with its first
+    lanes zeroed, so that they flat-start (``tests/test_pallas_tree.py``)."""
     from gym_anm_tpu_torch.ops import tree_cuda
 
-    rows = []
     for name, amp, x_tol in TREE_GRIDS:
         g = make_grid(name)
         ds = g.tree
@@ -219,20 +263,40 @@ def phase_tree_vs_plain():
         zero = torch.zeros((1, KERNEL_B), device="cuda")
         pT = torch.cat([p, zero])[ds.slot_sel].contiguous()
         qT = torch.cat([q, zero])[ds.slot_sel].contiguous()
-        kern = lambda: tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, x_tol=x_tol, max_iter=TREE_MAX_ITER)
-        plain = lambda: tree_cuda.solve_pfe_tree_plain(ds, pT, qT, x_tol=x_tol, max_iter=TREE_MAX_ITER)
+        yield name, x_tol, ds, pT, qT, None
+        if not warm:
+            continue
+        vr, vi = tree_cuda.solve_pfe_tree(ds, 0.9 * p.T, 0.9 * q.T, x_tol=x_tol, max_iter=TREE_MAX_ITER)[:2]
+        vr = vr.clone()
+        vr[:WARM_ZEROED] = 0.0
+        yield name, x_tol, ds, pT, qT, tree_cuda.warm_point(ds, vr, vi)
+
+
+def phase_tree_vs_plain(ptxas):
+    from gym_anm_tpu_torch.ops import tree_cuda
+
+    rows = []
+    for name, x_tol, ds, pT, qT, warm in tree_cases():
+        kw = dict(x_tol=x_tol, max_iter=TREE_MAX_ITER, init=warm)
+        kern = lambda: tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, **kw)
+        plain = lambda: tree_cuda.solve_pfe_tree_plain(ds, pT, qT, **kw)
         vr_k, vi_k, d_k, it_k = kern()
         vr_p, vi_p, d_p, it_p = plain()
-        S = ds.sched.S
-        flops = sum(tree_cuda.tree_nr_flops_per_lane(S, int(i)) for i in it_k.cpu().numpy())
-        nbytes = 4 * (4 * S * KERNEL_B + 2 * KERNEL_B + ds.ycols.numel() + ds.levels.numel() + ds.run_ptr.numel()
-                      + ds.runs.numel())
+        S, L = ds.sched.S, ds.levels.shape[0]
+        its = collections.Counter(int(i) for i in it_k.cpu().numpy())
+        flops = sum(c * tree_cuda.tree_nr_flops_per_lane(S, i, warm is not None) for i, c in its.items())
+        tables = ds.ycols.numel() + ds.levels.numel() + ds.par.numel() + ds.children.numel()
+        nbytes = 4 * ((4 if warm is None else 6) * S * KERNEL_B + 2 * KERNEL_B + tables)
+        geometry = tree_cuda.tree_nr_geometry(ds)
         row = {
-            "phase": "kernel_vs_plain", "kernel": "tree_nr", "grid": name, "S": S, "levels": len(ds.sched.levels),
-            "B": KERNEL_B, "x_tol": x_tol, "mean_iters": float(it_k.float().mean()),
+            "phase": "kernel_vs_plain", "kernel": "tree_nr", "grid": name, "warm": warm is not None, "S": S,
+            "levels": L, "B": KERNEL_B, "x_tol": x_tol, "mean_iters": float(it_k.float().mean()),
             **agreement(d_k <= x_tol, d_p <= x_tol, [vr_k - vr_p, vi_k - vi_p], it_k, it_p),
             "ms": event_ms(kern, 20, 5, graph=True), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+            "geometry": geometry,
+            "ptxas": next((v for k, v in ptxas.items() if k.startswith("tree_nr_kernel<%d," % geometry["threads_per_lane"])), None),
         }
+        row["bit_identical"] = bit_identical(row) and bool(torch.equal(it_k, it_p))
         emit(row)
         check_agreement(row)
         rows.append(row)
@@ -355,11 +419,13 @@ def phase_parity():
                                      % (method, kernel, counts[kernel], T + 1))
 
 
-def phase_rollout(env_name, pf_method, T, rollouts):
+def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False):
     from gym_anm_tpu_torch import check
     from gym_anm_tpu_torch.envs.batched import BatchedEnv
 
-    core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda", pf_method=pf_method)
+    core = check.task_make_core(env_name)(
+        dtype=torch.float32, device="cuda", pf_method=pf_method, warm_start=warm_start
+    )
     kernel = path_kernel(core)
     env = BatchedEnv(core, ROLLOUT_B)
     torch.cuda.synchronize()
@@ -391,7 +457,7 @@ def phase_rollout(env_name, pf_method, T, rollouts):
         raise AssertionError("the %s %s path launched %s %d times" % (env_name, pf_method, kernel, counts[kernel]))
     steady = float(np.median(seconds[1:]))
     emit({
-        "phase": "rollout", "env": env_name, "pf_method": pf_method, "B": ROLLOUT_B, "T": T,
+        "phase": "rollout", "env": env_name, "pf_method": pf_method, "warm_start": warm_start, "B": ROLLOUT_B, "T": T,
         "rollouts": rollouts, "reset_s": reset_s, "rollout_s": seconds, "env_steps_per_s": ROLLOUT_B * T / steady,
         "terminated_frac": float(terms[-1][-1].float().mean()), "mean_reward": float(reward.mean()),
         "kernel": kernel, "launches": counts,
@@ -407,11 +473,17 @@ def main() -> int:
         import gym_anm_tpu_torch  # noqa: F401  (fails before any output where the package is absent)
 
         phase_device()
-        phase_build()
-        checks = {"tree_nr": phase_tree_vs_plain(), "nr_dense": phase_nr_vs_plain(), "step_fused": phase_step_vs_plain()}
+        ptxas = phase_build()
+        checks = {
+            "tree_nr": phase_tree_vs_plain(ptxas), "nr_dense": phase_nr_vs_plain(), "step_fused": phase_step_vs_plain(),
+        }
         phase_parity()
-        runs = [(case[0], phase_rollout(*case)) for case in ROLLOUT_CASES]
-        launches = {kernel: n for env, (kernel, n) in runs if env == "anm6easy"}
+        runs = [(case, phase_rollout(*case)) for case in ROLLOUT_CASES]
+        # Each kernel's launches on its first ANM6Easy path, a cold start.
+        launches = {}
+        for case, (kernel, n) in runs:
+            if case[0] == "anm6easy" and len(case) == 4:
+                launches.setdefault(kernel, n)
     except Exception:
         traceback.print_exc()
         return 1

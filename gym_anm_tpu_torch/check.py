@@ -34,6 +34,10 @@ CHECK_CONFIG = {
         B=128, T=24, seed=0, action_scale=1.0, stress=1.5,
         methods={"tree": {}, "hybrid": {}, "pallas": {}},
     ),
+    # No legal input collapses feeder141 (branch ratings are sized from the
+    # downstream peaks and loads clip at p_min): its check is pure state and
+    # reward parity of the float32 tree solve against the float64 reference.
+    "feeder141": dict(B=64, T=16, seed=0, action_scale=1.0, stress=2.0, methods={"tree": {}}),
 }
 
 
@@ -43,6 +47,8 @@ def task_make_core(env_name: str):
         from .envs.anm6.anm6_easy import make_core
     elif env_name == "feeder33":
         from .envs.feeder33 import make_core
+    elif env_name == "feeder141":
+        from .envs.feeder141 import make_core
     else:
         raise ValueError("no port of the %r task" % env_name)
     return make_core

@@ -36,7 +36,7 @@ from ..errors import EnvInitializationError
 from .grid import GridSpec, GridTensors
 from .obs import compile_gather, state_values_spec
 from .state import SimState, select_state, zeros_state
-from .transition import PF_METHODS, sim_reset, transition
+from .transition import PF_METHODS, check_warm_start, resolve_solver_path, sim_reset, transition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +89,10 @@ class EnvCore:
     :data:`~gym_anm_tpu_torch.core.transition.PF_METHODS`; ``chord_iters``
     (the hybrid methods' chord prefix) and ``nr_pivot`` (partial pivoting in
     the dense NR elimination) keep the JAX package's defaults.
+    ``warm_start`` warm-starts each step's power flow from the previous
+    step's solved bus voltages (``pf_method="tree"`` only; reset solves and
+    absorbing or reborn lanes flat-start); off by default, as the reference
+    flat-starts every solve.
     Observations are the clipped canonical state vector (fully observable
     tasks); packing other observables is not ported yet.
     """
@@ -110,6 +114,7 @@ class EnvCore:
         reset_attempts: int = 10,
         chord_iters: int = 16,
         nr_pivot: bool = False,
+        warm_start: bool = False,
     ):
         if pf_method not in PF_METHODS:
             raise ValueError("pf_method %r is not supported; the port has %s" % (pf_method, PF_METHODS))
@@ -131,6 +136,9 @@ class EnvCore:
         self.reset_attempts = int(reset_attempts)
         self.chord_iters = int(chord_iters)
         self.nr_pivot = bool(nr_pivot)
+        self.warm_start = bool(warm_start)
+        if self.warm_start:
+            check_warm_start(resolve_solver_path(self.grid, pf_method)[0], pf_method)
 
         self.state_values = state_values_spec(spec, self.K)
         self.state_gather = compile_gather(spec, self.state_values, self.K, aux_bounds)
@@ -226,6 +234,7 @@ class EnvCore:
             pf_method=self.pf_method,
             chord_iters=self.chord_iters,
             nr_pivot=self.nr_pivot,
+            v_init=(es.sim.bus_v_re, es.sim.bus_v_im) if self.warm_start else None,
         )
 
         c1, c2 = self.costs_clipping

@@ -169,6 +169,21 @@ def resolve_solver_path(g: GridTensors, pf_method: str):
     return "torch", eff
 
 
+def check_warm_start(path: str, pf_method: str):
+    """Raise unless the solver path :func:`resolve_solver_path` chose has a
+    warm start: only the tree-NR kernel (and its plain twin) has one."""
+    if path == "fused_kernel":
+        raise ValueError(
+            "warm starts (v_init) are not supported on the fused whole-transition "
+            "kernel; use pf_method='tree' for warm-started solves"
+        )
+    if path != "tree_kernel":
+        raise ValueError(
+            "warm starts (v_init) are ported for pf_method='tree' only: the warm form of "
+            "the dense-NR kernel (pf_method=%r) is not ported yet (ROADMAP, Queue 1 item 9)" % (pf_method,)
+        )
+
+
 def _fused(g: GridTensors, args, x_tol, max_iter, chord_iters, nr_pivot) -> TransitionResult:
     """The whole transition in one launch (``ops/step_cuda.py``)."""
     o = fused_transition(
@@ -215,6 +230,7 @@ def transition(
     pf_method="tree",
     chord_iters=16,
     nr_pivot=False,
+    v_init=None,
 ) -> TransitionResult:
     """One physics transition (simulator.py:464-537). All inputs in p.u.
 
@@ -230,8 +246,18 @@ def transition(
     plain ``solve_pfe`` methods.  ``max_iter`` is the true-NR budget (the
     tail after the chord prefix for the hybrid methods); ``nr_pivot``
     turns on partial pivoting in the dense NR elimination.
+
+    ``v_init`` optionally warm-starts the power flow from bus voltages
+    ``(v_re [B, n], v_im [B, n])``, e.g. the previous step's
+    (``SimState.bus_v_re/bus_v_im``): per lane the solve starts from
+    whichever of {warm point, flat start} has the smaller true mismatch;
+    absorbing and reborn lanes (zero or out-of-window voltages) flat-start,
+    and the convergence decision is unchanged.  Only ``"tree"`` has a warm
+    start; every other path raises.
     """
     path, method = resolve_solver_path(g, pf_method)
+    if v_init is not None:
+        check_warm_start(path, pf_method)
     chord = chord_iters if method in ("hybrid", "fused_hybrid") else 0
     if path == "fused_kernel":
         args = (des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des)
@@ -248,7 +274,9 @@ def transition(
     # Newton-Raphson load flow; the slack bus is internal index 0.
     p_in, q_in = bus_p[:, 1:], bus_q[:, 1:]
     if path == "tree_kernel":
-        v_re, v_im, _, _, converged = solve_pfe_tree(g.tree, p_in, q_in, x_tol=x_tol, max_iter=max_iter)
+        v_re, v_im, _, _, converged = solve_pfe_tree(
+            g.tree, p_in, q_in, x_tol=x_tol, max_iter=max_iter, init=v_init
+        )
     elif path == "nr_kernel":
         v_re, v_im, _, _, converged = solve_pfe_nr(
             g.Y_re, g.Y_im, g.J0inv, p_in, q_in,

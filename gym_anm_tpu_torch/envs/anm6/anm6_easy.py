@@ -60,7 +60,8 @@ def _get_gen_time_series():
 
 
 def make_core(
-    dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", chord_iters=16, nr_pivot=False
+    dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", chord_iters=16, nr_pivot=False,
+    warm_start=False,
 ):
     """Build the ANM6Easy :class:`~gym_anm_tpu_torch.core.env_core.EnvCore`
     computing on ``device`` (the card unless the caller passes ``"cpu"``) in
@@ -71,7 +72,9 @@ def make_core(
     default, ``"pallas"`` the JAX package's previous one.
     ``pf_max_iter=None`` takes the JAX package's calibrated budget of 10 for
     every method (every converging solve finishes in <= 8 iterations; its
-    parity check runs ``"hybrid"`` with 6, see ``check.CHECK_CONFIG``)."""
+    parity check runs ``"hybrid"`` with 6, see ``check.CHECK_CONFIG``).
+    ``warm_start`` warm-starts each step's solve from the previous step's
+    voltages (``"tree"`` only, off by default)."""
     from ...core.env_core import EnvCore
     from ...core.grid import build_grid
     from .network import network
@@ -96,6 +99,7 @@ def make_core(
         pf_method=pf_method,
         chord_iters=chord_iters,
         nr_pivot=nr_pivot,
+        warm_start=warm_start,
         # Every ANM6Easy s0 converges on attempt 1 (JAX package calibration).
         reset_attempts=1,
     )

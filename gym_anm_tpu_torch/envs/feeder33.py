@@ -38,17 +38,23 @@ def pf_max_iter_for(pf_method: str) -> int:
 
 
 def make_core(
-    dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", chord_iters=16, nr_pivot=False
+    dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", chord_iters=16, nr_pivot=False,
+    warm_start=False, network=None, x_tol=1e-5,
 ):
     """Build the feeder33 :class:`~gym_anm_tpu_torch.core.env_core.EnvCore`
     computing on ``device`` (the card unless the caller passes ``"cpu"``) in
-    ``dtype``.  ``pf_max_iter=None`` takes :func:`pf_max_iter_for`."""
+    ``dtype``.  ``pf_max_iter=None`` takes :func:`pf_max_iter_for`.
+    ``warm_start`` warm-starts each step's solve from the previous step's
+    voltages (``"tree"`` only, off by default).  ``network`` replaces the
+    33-bus feeder with another radial network dict under the same dynamics
+    (the 141-bus task, ``envs/feeder141.py``)."""
     from ..core.env_core import EnvCore
     from ..core.grid import build_grid
     from .feeder_networks import make_feeder_network
 
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    spec, _ = build_grid(make_feeder_network(), delta_t=0.25, lamb=100, dtype=np_dtype)
+    net = make_feeder_network() if network is None else network
+    spec, _ = build_grid(net, delta_t=0.25, lamb=100, dtype=np_dtype)
     device = torch.device(device)
     t = lambda a: torch.as_tensor(np.asarray(a, dtype=np_dtype), device=device)
     load_scale = t(-np.asarray(spec.load_p_min) * spec.baseMVA)
@@ -93,10 +99,12 @@ def make_core(
         aux_bounds=np.array([[0, 95]]),
         init_state_fn=init_state_fn,
         next_vars_fn=next_vars_fn,
+        x_tol=x_tol,
         max_iter=pf_max_iter_for(pf_method) if pf_max_iter is None else pf_max_iter,
         pf_method=pf_method,
         chord_iters=chord_iters,
         nr_pivot=nr_pivot,
+        warm_start=warm_start,
         # Feeder initial states essentially always converge; one masked
         # retry round covers the tail (JAX package calibration).
         reset_attempts=2,

@@ -28,8 +28,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# The fields of a dense kernel's launch geometry, in the order its C
-# function (nr_dense_geometry, step_fused_geometry) writes them.
+# The fields of a team kernel's launch geometry, in the order its C
+# function (tree_nr_geometry, nr_dense_geometry, step_fused_geometry)
+# writes them.
 GEOMETRY_FIELDS = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes_per_block", "blocks_per_sm")
 
 _lock = threading.Lock()
@@ -99,15 +100,16 @@ def load_library() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.tree_nr_scratch_planes.argtypes = []
-            lib.tree_nr_scratch_planes.restype = ci
             lib.tree_nr_solve_f32.argtypes = [
-                vp, vp, vp, vp, vp, vp,  # p, q, ycols, levels, run_ptr, runs
-                ci, ci, ci, cf, ci,  # S, n_levels, B, x_tol, max_iter
-                vp, vp, vp, vp, vp,  # scratch, v_re, v_im, diff, n_iter
+                vp, vp, vp, vp,  # p, q, th_w, vm_w (both null: cold start)
+                vp, vp, vp, vp,  # ycols, par, children, levels
+                ci, ci, ci, ci, cf, ci,  # S, maxC, n_levels, B, x_tol, max_iter
+                vp, vp, vp, vp,  # v_re, v_im, diff, n_iter
                 vp,  # stream
             ]
             lib.tree_nr_solve_f32.restype = ci
+            lib.tree_nr_geometry.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]  # S, maxC, n_levels, out[5]
+            lib.tree_nr_geometry.restype = ci
             lib.nr_dense_solve_f32.argtypes = [
                 vp, vp, vp, vp, vp,  # Y_re, Y_im, J0inv, p, q
                 ci, ci, cf, ci, ci, ci,  # n, B, x_tol, max_iter, chord_iters, pivot

@@ -4,8 +4,9 @@ The counterpart of ``gym_anm_tpu.ops.power_flow`` (the reference solver
 ``gym_anm/simulator/solve_load_flow.py:7-226``): :func:`solve_pfe` with the
 methods ``scan``, ``while`` and ``hybrid`` (the flat start, an optional
 chord prefix, then true-NR steps; the inf-norm of the mismatch <= x_tol
-stops a lane, NaN freezes it) and the host builder
-:func:`flat_start_jacobian_inv_np`.
+stops a lane, NaN freezes it), the host builder
+:func:`flat_start_jacobian_inv_np` and :func:`warm_init_theta_vm`, the warm
+point of the tree solver's warm start.
 
 The JAX package's XLA solver and the body of its dense-NR kernel compute the
 same iteration, so one plain solver serves both here: :func:`solve_pfe` runs
@@ -57,6 +58,30 @@ def flat_start_jacobian_inv_np(Y_re, Y_im, dtype=None):
     )
     out_dt = dtype if dtype is not None else np.asarray(Y_re).dtype
     return np.linalg.inv(J0).astype(out_dt)
+
+
+def warm_init_theta_vm(v_re, v_im, m, dt):
+    """Per-lane (theta, vm, valid) from previous-step bus voltages.
+
+    A copy of ``gym_anm_tpu.ops.power_flow.warm_init_theta_vm``.  ``v_re,
+    v_im [..., n]`` (batch-first, the layout solvers return and ``SimState``
+    stores).  Returns batch-last ``theta, vm [m, B]`` and a per-lane
+    ``valid [B]``: a lane is a usable warm start only when every bus voltage
+    is finite and its magnitude lies inside 0.25..4 p.u.; absorbing zero
+    states, diverged solutions and other invalid lanes get the flat start.
+    The convergence decision is never affected: it stays on the true
+    mismatch at ``x_tol``.
+    """
+    vr = torch.movedim(v_re.to(dt), -1, 0)[1:]  # [m, B]
+    vi = torch.movedim(v_im.to(dt), -1, 0)[1:]
+    vm = torch.sqrt(vr * vr + vi * vi)
+    theta = torch.atan2(vi, vr)
+    finite = torch.all(torch.isfinite(vr) & torch.isfinite(vi), dim=0)
+    window = torch.all((vm > 0.25) & (vm < 4.0), dim=0)
+    valid = finite & window
+    theta = torch.where(valid[None, :], theta, torch.zeros_like(theta))
+    vm = torch.where(valid[None, :], vm, torch.ones_like(vm))
+    return theta, vm, valid
 
 
 def solve_pfe(Y_re, Y_im, p, q, x_tol=1e-5, max_iter=100, method="scan", chord_iters=16, J0inv=None):

@@ -5,7 +5,9 @@ The counterpart of ``gym_anm_tpu.ops.pallas_tree``.  Per env lane it
 computes the exact polar NR power flow of a radial grid, the same thing as
 the TPU kernel ``_tree_tile_kernel``:
 
-* flat start (theta = 0, |V| = 1; the slack is pinned at 1 + 0j);
+* flat start (theta = 0, |V| = 1; the slack is pinned at 1 + 0j) or, given a
+  warm point, the per-lane best of {warm, flat}: the warm point where its
+  mismatch is finite and smaller than the flat start's;
 * per iteration: V, then I = YV over the tree edges (diagonal, parent read
   through the runs, children pushed through the runs), the mismatch
   F = V conj(I) - S and its inf-norm; lanes whose norm is above ``x_tol``
@@ -21,7 +23,10 @@ mismatch of the returned point and ``converged = diff <= x_tol``.
 Both versions run on the slot layout of :func:`build_tree_schedule`:
 non-slack buses renumbered leaves first into contiguous levels, with the
 parent map decomposed into constant-offset runs ``(src, k, dst)`` meaning
-``parent_slot(src + i) = dst + i``.
+``parent_slot(src + i) = dst + i``.  The kernel reads the same map as each
+slot's parent and its children in run order (:func:`gather_tables`), so a
+parent that gathers its children's terms adds them in the order the plain
+version pushes them.
 
 :func:`solve_pfe_tree` dispatches on the tensor's device: a CUDA float32
 tensor launches the kernel (``csrc/tree_nr.cu``); a CPU tensor runs
@@ -37,7 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .power_flow import cmul as _cmul
+from .power_flow import cmul as _cmul, warm_init_theta_vm
 from .tree_nr import build_tree_info
 
 # Column layout of the per-slot static table ``ycols [S, 8]``.
@@ -50,15 +55,20 @@ _YC_HASPAR, _YC_PAD = 6, 7  # non-slack-parent mask; pad-slot mask
 KERNEL_LAUNCHES = 0
 
 
-def tree_nr_flops_per_lane(S: int, n_iter: int) -> int:
+def tree_nr_flops_per_lane(S: int, n_iter: int, warm: bool = False) -> int:
     """FLOPs one lane of the tree-NR solve needs for ``n_iter`` NR steps,
     counted from ``csrc/tree_nr.cu`` (transcendentals and divides count 1,
-    compares and selects 0; each slot pushes to at most one parent).  Per
-    slot: one mismatch evaluation 39, one NR step 173 (Jacobian blocks 108,
-    elimination and Schur push 49, back substitution 14, update 2).  The
-    JAX package's ``tree_pallas_flops_per_lane`` over-counts the current
-    kernel (it still charges a removed U rebuild), so it is not reused."""
-    return S * (39 + n_iter * (173 + 39))
+    compares and selects 0; each slot has at most one parent, so the
+    children's terms a parent gathers count once per slot).  Per slot: one
+    mismatch evaluation 39, one NR step 173 (Jacobian blocks 108,
+    elimination and Schur push 49, back substitution 14, update 2).  A warm
+    start evaluates the warm point too; the kernel's evaluation again of a
+    point already evaluated (a lane that keeps the flat start, a frozen lane
+    beside active ones in a warp) is not work the solve needs and is not
+    counted.  The JAX package's ``tree_pallas_flops_per_lane`` over-counts
+    the kernel (it still charges a removed U rebuild), so it is not
+    reused."""
+    return S * (39 * (2 if warm else 1) + n_iter * (173 + 39))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -181,20 +191,38 @@ def build_tree_schedule(br_f, br_t, n_bus, Y_re, Y_im, align: int = 1, dtype=np.
     )
 
 
+def gather_tables(sched: TreeSchedule):
+    """Each slot's parent and children, from the runs: ``par [S]`` (-1 under
+    the slack) and ``children [maxC, S]`` (-1 padded), both int32.  A slot's
+    children are listed in the order of the runs, which is the order in
+    which the plain version pushes their terms to it."""
+    par = np.full(sched.S, -1, dtype=np.int32)
+    kids = [[] for _ in range(sched.S)]
+    for lruns in sched.runs:
+        for src, k, dst in lruns:
+            for i in range(k):
+                par[src + i] = dst + i
+                kids[dst + i].append(src + i)
+    children = np.full((sched.maxC, sched.S), -1, dtype=np.int32)
+    for s, ks in enumerate(kids):
+        children[: len(ks), s] = ks
+    return par, children
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceSchedule:
     """A :class:`TreeSchedule` with its tables on one device.
 
-    ``levels [L, 2]`` holds ``(off, W)``; the runs of level ``l`` are rows
-    ``run_ptr[l]:run_ptr[l + 1]`` of ``runs [R, 3]`` (``src, k, dst``).  The
-    kernel reads these in runtime loops, so one binary serves every grid.
+    ``levels [L, 2]`` holds ``(off, W)``; ``par`` and ``children`` are
+    :func:`gather_tables`.  The kernel stages these once per block and reads
+    them in runtime loops, so one binary serves every grid.
     """
 
     sched: TreeSchedule
     ycols: torch.Tensor  # [S, 8] in the working float type
     levels: torch.Tensor  # [L, 2] int32
-    run_ptr: torch.Tensor  # [L + 1] int32
-    runs: torch.Tensor  # [R, 3] int32
+    par: torch.Tensor  # [S] int32
+    children: torch.Tensor  # [maxC, S] int32
     slot_sel: torch.Tensor  # [S] int64: bus-1 at each slot, m for pads
     busm1_slot: torch.Tensor  # [m] int64
 
@@ -207,15 +235,14 @@ class DeviceSchedule:
             return None
         device = torch.device(device)
         m = spec.n_bus - 1
-        flat = [r for lruns in sched.runs for r in lruns]
-        run_ptr = np.cumsum([0] + [len(lruns) for lruns in sched.runs])
-        i32 = lambda a, w: torch.as_tensor(np.asarray(a, dtype=np.int32).reshape(-1, w), device=device)
+        par, children = gather_tables(sched)
+        levels = np.asarray([(off, W) for off, W, _ in sched.levels], dtype=np.int32)
         return cls(
             sched=sched,
             ycols=torch.as_tensor(sched.ycols, device=device).to(dtype),
-            levels=i32([(off, W) for off, W, _ in sched.levels], 2),
-            run_ptr=i32(run_ptr, 1).reshape(-1),
-            runs=i32(flat, 3),
+            levels=torch.as_tensor(levels, device=device),
+            par=torch.as_tensor(par, device=device),
+            children=torch.as_tensor(children, device=device),
             slot_sel=torch.as_tensor(np.where(sched.slot_busm1 >= 0, sched.slot_busm1, m), device=device),
             busm1_slot=torch.as_tensor(sched.busm1_slot, device=device),
         )
@@ -235,12 +262,15 @@ def _blocks(a, b, wre, wim, ure, uim, t1r=None, t1i=None):
     return dSa_re, dSm_re, dSa_im, dSm_im
 
 
-def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10):
+def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None):
     """Plain PyTorch tree-NR solve on the slot layout, batch-last.
 
     ``p, q``: ``[S, B]`` non-slack injections in slot order, float32 or
-    float64 on any device.  Returns ``(v_re [S, B], v_im [S, B], diff [B],
-    n_iter [B] int32)`` in slot order.
+    float64 on any device.  ``init`` optionally gives a warm point
+    ``(theta [S, B], vm [S, B])`` in slot order (:func:`warm_point`); each
+    lane starts from it where its mismatch is finite and smaller than the
+    flat start's.  Returns ``(v_re [S, B], v_im [S, B], diff [B], n_iter [B]
+    int32)`` in slot order.
     """
     sched = ds.sched
     S, B = p.shape
@@ -358,6 +388,13 @@ def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10):
     theta = torch.zeros((S, B), dtype=dt, device=dev)
     vm = torch.ones((S, B), dtype=dt, device=dev)
     ev = eval_point(theta, vm)
+    if init is not None:
+        th_w, vm_w = init
+        ev_w = eval_point(th_w, vm_w)
+        use_w = torch.isfinite(ev_w[-1]) & (ev_w[-1] < ev[-1])
+        theta = torch.where(use_w, th_w, theta)
+        vm = torch.where(use_w, vm_w, vm)
+        ev = tuple(torch.where(use_w, a, b) for a, b in zip(ev_w, ev))
     n_iter = torch.zeros((B,), dtype=torch.int32, device=dev)
     for _ in range(max_iter):
         active = ev[-1] > x_tol  # NaN freezes the lane
@@ -373,8 +410,8 @@ def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10):
     return ev[0], ev[1], ev[-1], n_iter
 
 
-def _check_kernel_args(ds: DeviceSchedule, p, q):
-    for name, t in (("p", p), ("q", q)):
+def _check_kernel_args(ds: DeviceSchedule, p, q, init):
+    for name, t in (("p", p), ("q", q)) + (() if init is None else (("theta_w", init[0]), ("vm_w", init[1]))):
         if not t.is_cuda:
             raise ValueError("%s must be a CUDA tensor for the tree-NR kernel" % name)
         if t.dtype != torch.float32:
@@ -383,15 +420,25 @@ def _check_kernel_args(ds: DeviceSchedule, p, q):
             raise ValueError("%s must be contiguous" % name)
         if t.dim() != 2 or t.shape[0] != ds.sched.S:
             raise ValueError("%s must be [S=%d, B]; got %s" % (name, ds.sched.S, tuple(t.shape)))
-    if p.shape != q.shape or p.device != q.device:
-        raise ValueError("p and q must have one shape and one device")
+    if any(t.shape != p.shape or t.device != p.device for t in (q,) + (() if init is None else tuple(init))):
+        raise ValueError("p, q and the warm point must have one shape and one device")
     if ds.ycols.device != p.device or ds.ycols.dtype != torch.float32:
         raise ValueError("the schedule must be float32 on the inputs' device")
     if p.shape[1] == 0:
         raise ValueError("empty batch")
 
 
-def solve_pfe_tree_cuda(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10):
+def tree_nr_geometry(ds: DeviceSchedule) -> dict:
+    """The kernel's launch geometry for this schedule on the current CUDA
+    device: threads a lane, lanes a block, threads a block, dynamic shared
+    bytes a block and resident blocks an SM."""
+    from ._build import load_library, read_geometry
+
+    lib = load_library()
+    return read_geometry(lib.tree_nr_geometry, ds.sched.S, ds.sched.maxC, ds.levels.shape[0])
+
+
+def solve_pfe_tree_cuda(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None):
     """Launch the CUDA tree-NR kernel (``csrc/tree_nr.cu``).
 
     Same contract as :func:`solve_pfe_tree_plain`, for contiguous float32
@@ -400,20 +447,20 @@ def solve_pfe_tree_cuda(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10):
     global KERNEL_LAUNCHES
     from ._build import load_library
 
-    _check_kernel_args(ds, p, q)
+    _check_kernel_args(ds, p, q, init)
     lib = load_library()
     S, B = p.shape
-    scratch = torch.empty((lib.tree_nr_scratch_planes(), S, B), dtype=torch.float32, device=p.device)
     v_re = torch.empty_like(p)
     v_im = torch.empty_like(p)
     diff = torch.empty((B,), dtype=torch.float32, device=p.device)
     n_iter = torch.empty((B,), dtype=torch.int32, device=p.device)
+    th_w, vm_w = (None, None) if init is None else (init[0].data_ptr(), init[1].data_ptr())
     stream = torch.cuda.current_stream(p.device).cuda_stream
     rc = lib.tree_nr_solve_f32(
-        p.data_ptr(), q.data_ptr(), ds.ycols.data_ptr(),
-        ds.levels.data_ptr(), ds.run_ptr.data_ptr(), ds.runs.data_ptr(),
-        S, ds.levels.shape[0], B, ctypes.c_float(x_tol), int(max_iter),
-        scratch.data_ptr(), v_re.data_ptr(), v_im.data_ptr(), diff.data_ptr(), n_iter.data_ptr(),
+        p.data_ptr(), q.data_ptr(), th_w, vm_w, ds.ycols.data_ptr(),
+        ds.par.data_ptr(), ds.children.data_ptr(), ds.levels.data_ptr(),
+        S, ds.sched.maxC, ds.levels.shape[0], B, ctypes.c_float(x_tol), int(max_iter),
+        v_re.data_ptr(), v_im.data_ptr(), diff.data_ptr(), n_iter.data_ptr(),
         stream,
     )
     if rc != 0:
@@ -422,10 +469,23 @@ def solve_pfe_tree_cuda(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10):
     return v_re, v_im, diff, n_iter
 
 
-def solve_pfe_tree(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10):
+def warm_point(ds: DeviceSchedule, v_re, v_im):
+    """The warm point ``(theta [S, B], vm [S, B])`` in slot order from bus
+    voltages ``v_re, v_im [B, n]`` (:func:`warm_init_theta_vm`: lanes with a
+    non-finite or out-of-window voltage get the flat start; pad slots too)."""
+    B, n = v_re.shape
+    th_b, vm_b, _ = warm_init_theta_vm(v_re, v_im, n - 1, v_re.dtype)  # [m, B] bus order
+    th = torch.cat([th_b, torch.zeros((1, B), dtype=th_b.dtype, device=th_b.device)])[ds.slot_sel]
+    vm = torch.cat([vm_b, torch.ones((1, B), dtype=vm_b.dtype, device=vm_b.device)])[ds.slot_sel]
+    return th.contiguous(), vm.contiguous()
+
+
+def solve_pfe_tree(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None):
     """Batched tree-NR solve.
 
     ``p, q``: ``[B, m]`` non-slack bus injections in bus order (1..n-1).
+    ``init`` optionally warm-starts from previous bus voltages ``(v_re
+    [B, n], v_im [B, n])`` with the per-lane best-of-{warm, flat} guard.
     A CUDA tensor launches the kernel (float32 only); a CPU tensor runs the
     plain version.  Returns ``(v_re [B, n], v_im [B, n], diff [B],
     n_iter [B], converged [B])`` batch-first, like the JAX solvers.
@@ -436,8 +496,9 @@ def solve_pfe_tree(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10):
     zero = torch.zeros((1, B), dtype=dt, device=dev)
     pT = torch.cat([p.T, zero], dim=0)[ds.slot_sel].contiguous()
     qT = torch.cat([q.T, zero], dim=0)[ds.slot_sel].contiguous()
+    warm = None if init is None else warm_point(ds, init[0].to(dt), init[1].to(dt))
     solver = solve_pfe_tree_cuda if p.is_cuda else solve_pfe_tree_plain
-    vr_s, vi_s, diff, n_iter = solver(ds, pT, qT, x_tol=x_tol, max_iter=max_iter)
+    vr_s, vi_s, diff, n_iter = solver(ds, pT, qT, x_tol=x_tol, max_iter=max_iter, init=warm)
     # Slot order -> bus order with the pinned slack row.
     vr = torch.cat([torch.ones((1, B), dtype=dt, device=dev), vr_s[ds.busm1_slot]], dim=0)
     vi = torch.cat([zero, vi_s[ds.busm1_slot]], dim=0)

@@ -1,9 +1,9 @@
 """Where the time of one env step goes: the PyTorch port's rollout of a task
-(ANM6Easy unless ``--env feeder33``) at B=4096 on a CUDA device, under
-``torch.profiler``.
+(ANM6Easy unless ``--env feeder33`` or ``--env feeder141``) at B=4096 on a
+CUDA device, under ``torch.profiler``.
 
-    python3 scripts/profile_torch_rollout.py [--env anm6easy] [--pf tree] [--batch 4096] [--steps 8] [--seed 0]
-                                             [--trace PATH]
+    python3 scripts/profile_torch_rollout.py [--env anm6easy] [--pf tree] [--warm-start] [--batch 4096]
+                                             [--steps 8] [--seed 0] [--trace PATH]
 
 Warms up (build, reset, a few steps), then times ``--steps`` steps untraced
 (host clock around work that ends in a synchronize) and profiles the same
@@ -33,8 +33,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--env", default="anm6easy", choices=("anm6easy", "feeder33"))
+    ap.add_argument("--env", default="anm6easy", choices=("anm6easy", "feeder33", "feeder141"))
     ap.add_argument("--pf", default="tree", help="pf_method of the core (tree, pallas, hybrid, fused, ...)")
+    ap.add_argument("--warm-start", action="store_true", help="warm-start each step's solve (tree only)")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
@@ -55,7 +56,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    core = check.task_make_core(args.env)(dtype=torch.float32, device="cuda", pf_method=args.pf)
+    core = check.task_make_core(args.env)(
+        dtype=torch.float32, device="cuda", pf_method=args.pf, warm_start=args.warm_start
+    )
     path, _ = resolve_solver_path(core.grid, args.pf)
     counter, kname = {
         "tree_kernel": (tree_cuda, "tree_nr"),
@@ -92,7 +95,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
-        "card": smi, "env": args.env, "pf_method": args.pf, "B": args.batch, "steps": args.steps,
+        "card": smi, "env": args.env, "pf_method": args.pf, "warm_start": args.warm_start, "B": args.batch,
+        "steps": args.steps,
         "untraced_ms_per_step": untraced_ms, "traced_ms_per_step": traced_ms,
         "cuda_events_per_step": len(kernels) / args.steps,
         "device_busy_ms_per_step": busy_us / 1e3 / args.steps,

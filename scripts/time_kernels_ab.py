@@ -7,8 +7,9 @@ another commit unpacked with ``git archive`` under ``build/checkout/``
 (git-ignored).  On one GPU, for each ROOT in the order given, a fresh
 process imports that checkout's ``gym_anm_tpu_torch``, builds its kernels
 and times them at B=4096 on the cases of this checkout's ``chip_smoke.py``
-(K1 on its three grids, K2 on its four settings, K3 on both tasks for
-``fused`` and ``fused_hybrid``), through the public wrappers, with
+(K1 on its three grids, cold and, where the checkout's K1 has a warm
+form, warm; K2 on its four settings, K3 on both tasks for ``fused`` and
+``fused_hybrid``), through the public wrappers, with
 ``chip_smoke.event_ms``: the replay of a CUDA graph of 20 launches (``ms``,
 as ``chip_smoke.py`` reports) and 20 eager calls (``eager_ms``, the host's
 issue time included), each per launch.  Give the roots as A B B A to see
@@ -46,15 +47,11 @@ def cases(cs):
     from gym_anm_tpu_torch import check
     from gym_anm_tpu_torch.ops import nr_cuda, step_cuda, tree_cuda
 
-    for name, amp, x_tol in cs.TREE_GRIDS:
-        g = cs.make_grid(name)
-        p, q = cs.make_injections(g.spec.n_bus - 1, amp)
-        zero = torch.zeros((1, p.shape[1]), device="cuda")
-        pT = torch.cat([p, zero])[g.tree.slot_sel].contiguous()
-        qT = torch.cat([q, zero])[g.tree.slot_sel].contiguous()
-        kw = dict(x_tol=x_tol, max_iter=cs.TREE_MAX_ITER)
-        yield {"kernel": "tree_nr", "grid": name}, lambda ds=g.tree, pT=pT, qT=qT, kw=kw: (
-            tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, **kw))
+    # A checkout whose tree kernel has no warm form times its cold cases.
+    for name, x_tol, ds, pT, qT, warm in cs.tree_cases(warm=hasattr(tree_cuda, "warm_point")):
+        kw = dict(x_tol=x_tol, max_iter=cs.TREE_MAX_ITER, **({} if warm is None else {"init": warm}))
+        yield {"kernel": "tree_nr", "grid": name, "warm": warm is not None}, (
+            lambda ds=ds, pT=pT, qT=qT, kw=kw: tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, **kw))
     for name, amp, chord, pivot, max_iter in cs.NR_CASES:
         g = cs.make_grid(name)
         p, q = cs.make_injections(g.spec.n_bus - 1, amp)

@@ -164,7 +164,8 @@ def test_port_imports_no_jax():
 
 
 def test_check_config_equals_jax():
-    for env in ("anm6easy", "feeder33"):
+    assert set(check.CHECK_CONFIG) == set(jcheck.CHECK_CONFIG)
+    for env in check.CHECK_CONFIG:
         assert check.CHECK_CONFIG[env] == jcheck.CHECK_CONFIG[env]
 
 
@@ -172,9 +173,9 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from gym_anm_tpu_torch.core import state
-    from gym_anm_tpu_torch.envs import feeder33
+    from gym_anm_tpu_torch.envs import feeder33, feeder141
     from gym_anm_tpu_torch.envs.anm6 import anm6_easy
 
-    for fn in (anm6_easy.make_core, feeder33.make_core, state.zeros_state, state.sim_state_from_numpy,
+    for fn in (anm6_easy.make_core, feeder33.make_core, feeder141.make_core, state.zeros_state, state.sim_state_from_numpy,
                state.env_state_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

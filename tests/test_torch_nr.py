@@ -17,6 +17,8 @@ against the JAX package's.
 The CUDA kernel itself is tested on a GPU by ``tests/test_torch_cuda.py``.
 """
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -59,17 +61,34 @@ def _case(name, B, seed, dtype):
     return g, jspec, p, q
 
 
-@pytest.mark.parametrize(
-    "name, chord, pivot",
-    [("anm6", 0, False), ("anm6", 0, True), ("anm6", 16, False), ("anm6", 16, True), ("feeder33", 16, False)],
-)
-def test_plain_f64_matches_nr_core(name, chord, pivot):
+NR_CASES = [("anm6", 0, False), ("anm6", 0, True), ("anm6", 16, False), ("anm6", 16, True), ("feeder33", 16, False)]
+
+
+def _case_f64(name):
     g, jspec, p, q = _case(name, 48, 0, np.float64)
     p[:, :2] *= 30.0  # a few lanes that do not converge
-    kw = dict(x_tol=1e-9, max_iter=8, chord_iters=chord, pivot=pivot)
+    return g, jspec, p, q
+
+
+def _nr_kw(chord, pivot):
+    return dict(x_tol=1e-9, max_iter=8, chord_iters=chord, pivot=pivot)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_nr_core(name):
+    """The JAX ``nr_core`` of every case of one grid, compiled as one program."""
+    _, jspec, p, q = _case_f64(name)
     J0 = jax_j0inv(jspec.Y_re, jspec.Y_im)
-    ours = nr_core_plain(g.Y_re, g.Y_im, g.J0inv, torch.tensor(p), torch.tensor(q), **kw)
-    theirs = jax.jit(lambda p, q: nr_core(jspec.Y_re, jspec.Y_im, J0, p, q, **kw))(p, q)
+    settings = [(c, pv) for n, c, pv in NR_CASES if n == name]
+    run = jax.jit(lambda p, q: [nr_core(jspec.Y_re, jspec.Y_im, J0, p, q, **_nr_kw(c, pv)) for c, pv in settings])
+    return {s: [np.asarray(x) for x in out] for s, out in zip(settings, run(p, q))}
+
+
+@pytest.mark.parametrize("name, chord, pivot", NR_CASES)
+def test_plain_f64_matches_nr_core(name, chord, pivot):
+    g, _, p, q = _case_f64(name)
+    ours = nr_core_plain(g.Y_re, g.Y_im, g.J0inv, torch.tensor(p), torch.tensor(q), **_nr_kw(chord, pivot))
+    theirs = _jax_nr_core(name)[(chord, pivot)]
     conv = np.asarray(theirs[4]) <= 1e-9
     assert 0.5 < conv.mean() < 1.0
     np.testing.assert_array_equal(ours[4].numpy() <= 1e-9, conv)

@@ -6,6 +6,9 @@ feeder33 grids, from injections made with numpy: identical iteration counts
 and convergence flags, V to 1e-9.  Also the host builder
 ``flat_start_jacobian_inv_np`` (a copy)."""
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -45,14 +48,32 @@ def _case(name, B, seed):
     return spec, jspec, p, q
 
 
-@pytest.mark.parametrize("method", ["scan", "while", "hybrid"])
-@pytest.mark.parametrize("name", ["anm6", "feeder33"])
-def test_solve_pfe_matches_jax_f64(name, method):
+METHODS = ("scan", "while", "hybrid")
+KW = dict(x_tol=1e-9, max_iter=8, chord_iters=6)
+
+
+def _case_f64(name):
     spec, jspec, p, q = _case(name, 48, 1)
     # A large injection on a few lanes leaves them unconverged (or NaN).
     p[:3] *= 40.0
-    kw = dict(x_tol=1e-9, max_iter=8, method=method, chord_iters=6)
-    jv = jax_solve_pfe(jspec.Y_re, jspec.Y_im, p, q, **kw)
+    return spec, jspec, p, q
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_solves(name):
+    """The JAX package's solves of every method on one grid, compiled as one
+    program (one compile instead of one a method)."""
+    _, jspec, p, q = _case_f64(name)
+    run = jax.jit(lambda Yr, Yi, p, q: {m: jax_solve_pfe(Yr, Yi, p, q, method=m, **KW) for m in METHODS})
+    return {m: [np.asarray(x) for x in v] for m, v in run(jspec.Y_re, jspec.Y_im, p, q).items()}
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("name", ["anm6", "feeder33"])
+def test_solve_pfe_matches_jax_f64(name, method):
+    spec, _, p, q = _case_f64(name)
+    kw = dict(KW, method=method)
+    jv = _jax_solves(name)[method]
     Y = lambda a: torch.tensor(np.asarray(a))
     v = solve_pfe(Y(spec.Y_re), Y(spec.Y_im), torch.tensor(p), torch.tensor(q), **kw)
     conv = np.asarray(jv[4])

@@ -5,7 +5,10 @@ Inputs are the ANM6 generator and storage capability polytopes with random
 dynamic rows (potential cap, SoC charge/discharge caps) and random points
 both inside and outside them, made from numpy seeds."""
 
+import functools
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -17,12 +20,27 @@ from gym_anm_tpu_torch.envs.anm6.network import network
 from gym_anm_tpu_torch.ops.projection import project_polytope_lanes
 
 
+def _polytopes():
+    spec, _ = build_grid(network, 0.25, 100, dtype=np.float64)
+    return spec, np.concatenate([spec.gen_G, spec.des_G], axis=0)  # [C, m, 2]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_projections():
+    """Both JAX projections of the ANM6 polytopes, each compiled once for
+    every seed (op by op, each of their ops compiles alone)."""
+    _, G = _polytopes()
+    lanes = jax.jit(lambda px, py, h: jax_project_lanes(px, py, G, h))
+    points = jax.jit(lambda pts, h: project_polytope(pts, jnp.broadcast_to(G, (pts.shape[0],) + G.shape), h))
+    return lanes, points
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_projection_matches_jax(seed):
-    spec, _ = build_grid(network, 0.25, 100, dtype=np.float64)
-    G = np.concatenate([spec.gen_G, spec.des_G], axis=0)  # [C, m, 2]
+    spec, G = _polytopes()
+    jax_lanes, jax_points = _jax_projections()
     h0 = np.concatenate([spec.gen_h0, spec.des_h0], axis=0)  # [C, m]
-    C, m, _ = G.shape
+    C = G.shape[0]
     rng = np.random.default_rng(seed)
     B = 512
     h = np.repeat(h0[:, :, None], B, axis=2)
@@ -35,13 +53,12 @@ def test_projection_matches_jax(seed):
     py = rng.uniform(-1.0, 1.0, (C, B)) * scale
 
     x, y = project_polytope_lanes(torch.tensor(px), torch.tensor(py), G, torch.tensor(h))
-    jx, jy = jax_project_lanes(jnp.asarray(px), jnp.asarray(py), G, jnp.asarray(h))
+    jx, jy = jax_lanes(jnp.asarray(px), jnp.asarray(py), jnp.asarray(h))
     np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=0, atol=1e-12)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=0, atol=1e-12)
 
     pts = np.stack([px.T, py.T], axis=-1)  # [B, C, 2]
-    Gb = np.broadcast_to(G, (B, C, m, 2))
-    ref = np.asarray(project_polytope(jnp.asarray(pts), jnp.asarray(Gb), jnp.asarray(np.moveaxis(h, 2, 0))))
+    ref = np.asarray(jax_points(jnp.asarray(pts), jnp.asarray(np.moveaxis(h, 2, 0))))
     np.testing.assert_allclose(x.numpy().T, ref[..., 0], rtol=0, atol=1e-12)
     np.testing.assert_allclose(y.numpy().T, ref[..., 1], rtol=0, atol=1e-12)
 
