@@ -14,7 +14,8 @@ the port's paths on the card, one JSON line per phase:
    grids, each from the flat start and warm-started (the solved V of a
    nearby problem, its first lanes zeroed so that they flat-start); the
    dense-NR kernel (K2) on ANM6 and feeder33 with (chord 0, pivot off) and
-   (chord 16, pivot on); the fused-transition kernel (K3) on ANM6 and
+   (chord 16, pivot on), each cold and warm-started as K1's rows are; the
+   fused-transition kernel (K3) on ANM6 and
    feeder33 for ``fused`` and ``fused_hybrid``, from inputs a rollout of the
    task gives.  The rule: converged flags agree on >= 99% of lanes; V (K1,
    K2) or every output field (K3) within 5e-5 on lanes both versions
@@ -28,22 +29,31 @@ the port's paths on the card, one JSON line per phase:
    wrapper's host work); a plain twin's the median of timed calls.  Each row
    carries the kernel's bound;
 4. parity: ``tests/data/onchip_ref_{anm6easy,feeder33,feeder141}.npz``
-   through every solver path of ``check.CHECK_CONFIG`` on the card, compared
-   with the committed host-float64 trajectories by
+   through every solver path of ``check.CHECK_CONFIG`` on the card, and
+   warm-started through ANM6Easy's ``pallas`` and feeder33's ``hybrid``,
+   compared with the committed host-float64 trajectories by
    ``check.compare_trajectories``, with the launch count of the kernel each
    path uses;
 5. rollout: ``BatchedEnv(make_core(pf_method=...), 4096)`` for ANM6Easy
    through the tree, pallas and fused paths (one reset and three 64-step
    rollouts), for feeder33 through the fused and tree paths and for
    feeder141 through the tree path (one reset and two 16-step rollouts),
-   and for ANM6Easy through the tree path warm-started (one reset and two
-   64-step rollouts), with uniform random actions; every launch count is
-   set to 0 just before a path runs and read just after, and the path's
-   kernel must have run once per step.
+   warm-started for ANM6Easy through the tree and pallas paths (one reset
+   and two 64-step rollouts) and for feeder33 through the hybrid path, and
+   with auto-reset for ANM6Easy through the tree path in pool and in step
+   mode (reborn lanes must be live), with uniform random actions;
+6. train: ``PPOTrainer`` (3 iterations) and ``SACTrainer`` (2 warm-up
+   rounds and 3 iterations) with their default configurations over
+   ANM6Easy at B=4096 (the tree path, pool auto-reset): each iteration's
+   metrics and seconds; a non-finite loss or parameter fails.
+
+Every launch count is set to 0 just before a path runs and read just
+after, and the path's kernel must have run once per step.
 
 It exits non-zero, printing no result, when no GPU is available or any
-phase fails.  The line before the last lists the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+phase fails.  The line before the last lists the kernels (K1 and K2 cold
+and warm, K3), each with its launches on its ANM6Easy path (K1 cold: the
+PPO run); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -61,14 +71,23 @@ import numpy as np
 import torch
 
 ROLLOUT_B = 4096
-# (env, pf_method, steps a rollout, rollouts[, warm_start]): ANM6Easy
-# through each kernel's path, then feeder33, where the dense paths are
-# device-bound, feeder141 through its one path, and ANM6Easy warm-started.
+# (env, pf_method, steps a rollout, rollouts[, warm_start[, auto-reset mode]]):
+# ANM6Easy through each kernel's path, then feeder33, where the dense paths
+# are device-bound, feeder141 through its one path, the warm-started paths,
+# and ANM6Easy with auto-reset in both modes.
 ROLLOUT_CASES = (
     ("anm6easy", "tree", 64, 3), ("anm6easy", "pallas", 64, 3), ("anm6easy", "fused", 64, 3),
     ("feeder33", "fused", 16, 2), ("feeder33", "tree", 16, 2), ("feeder141", "tree", 16, 2),
-    ("anm6easy", "tree", 64, 2, True),
+    ("anm6easy", "tree", 64, 2, True), ("anm6easy", "pallas", 64, 2, True), ("feeder33", "hybrid", 16, 2, True),
+    ("anm6easy", "tree", 64, 2, False, "pool"), ("anm6easy", "tree", 64, 2, False, "step"),
 )
+# Replays warm-started: (env, pf_method); the method's CHECK_CONFIG budget.
+WARM_REPLAYS = (("anm6easy", "pallas"), ("feeder33", "hybrid"))
+# The trainers' runs at the full batch: PPO iterations, SAC warm-up rounds
+# and iterations.
+TRAIN_B = 4096
+PPO_ITERS = 3
+SAC_WARMUP, SAC_ITERS = 2, 3
 KERNEL_B = 4096
 # Grids of the tree-kernel check: (name, injection amplitude, x_tol);
 # feeder141 keeps the float32 mismatch-plateau tolerance of its task.
@@ -92,6 +111,11 @@ KERNEL_INFO = {
     "tree_nr": ("gym_anm_tpu_torch/csrc/tree_nr.cu", "gym_anm_tpu/ops/pallas_tree.py:267"),
     "nr_dense": ("gym_anm_tpu_torch/csrc/nr_dense.cu", "gym_anm_tpu/ops/pallas_nr.py:269"),
     "step_fused": ("gym_anm_tpu_torch/csrc/step_fused.cu", "gym_anm_tpu/ops/pallas_step.py:158"),
+}
+# The kernels with a warm form, and where the TPU kernel's warm form is.
+WARM_FORMS = {
+    "tree_nr": "gym_anm_tpu/ops/pallas_tree.py:268",
+    "nr_dense": "gym_anm_tpu/ops/pallas_nr.py:270",
 }
 
 
@@ -303,15 +327,35 @@ def phase_tree_vs_plain(ptxas):
     return rows
 
 
-def phase_nr_vs_plain():
+def nr_cases(warm=True):
+    """``(grid, n, chord, pivot, max_iter, g, p, q, warm)`` for each dense-NR
+    row: each setting of :data:`NR_CASES` cold, then (with ``warm``) warm.
+    The warm point is the sanitised solved V of the problem scaled by 0.9,
+    with its first lanes zeroed so that they flat-start, as for K1."""
     from gym_anm_tpu_torch.ops import nr_cuda
+    from gym_anm_tpu_torch.ops.power_flow import warm_init_theta_vm
 
-    rows = []
     for name, amp, chord, pivot, max_iter in NR_CASES:
         g = make_grid(name)
         n = g.spec.n_bus
         p, q = make_injections(n - 1, amp)
+        yield name, n, chord, pivot, max_iter, g, p, q, None
+        if not warm:
+            continue
         kw = dict(x_tol=1e-5, max_iter=max_iter, chord_iters=chord, pivot=pivot)
+        vr, vi = nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, 0.9 * p, 0.9 * q, **kw)[:2]
+        vr = vr.clone()
+        vr[:, :WARM_ZEROED] = 0.0
+        th, vm, _ = warm_init_theta_vm(vr.T, vi.T, n - 1, torch.float32)
+        yield name, n, chord, pivot, max_iter, g, p, q, (th.contiguous(), vm.contiguous())
+
+
+def phase_nr_vs_plain():
+    from gym_anm_tpu_torch.ops import nr_cuda
+
+    rows = []
+    for name, n, chord, pivot, max_iter, g, p, q, warm in nr_cases():
+        kw = dict(x_tol=1e-5, max_iter=max_iter, chord_iters=chord, pivot=pivot, init=warm)
         kern = lambda: nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
         plain = lambda: nr_cuda.nr_core_plain(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
         vr_k, vi_k, d_k, it_k = kern()
@@ -319,17 +363,20 @@ def phase_nr_vs_plain():
         # Chord steps come first: a lane's first min(it, chord) steps are chord steps.
         its = collections.Counter(int(i) for i in it_k.cpu().numpy())
         flops = sum(
-            c * nr_cuda.nr_dense_flops_per_lane(n, i - min(i, chord), min(i, chord)) for i, c in its.items()
+            c * nr_cuda.nr_dense_flops_per_lane(n, i - min(i, chord), min(i, chord), warm is not None)
+            for i, c in its.items()
         )
-        nbytes = 4 * (2 * n * n + (2 * n - 2) ** 2 + 2 * (n - 1) * KERNEL_B + 2 * n * KERNEL_B + 2 * KERNEL_B)
+        lane_rows = 2 * (n - 1) * (1 if warm is None else 2) + 2 * n + 2  # p, q[, th, vm]; v_re, v_im; diff, it
+        nbytes = 4 * (2 * n * n + (2 * n - 2) ** 2 + lane_rows * KERNEL_B)
         row = {
-            "phase": "kernel_vs_plain", "kernel": "nr_dense", "grid": name, "n": n, "chord_iters": chord,
-            "pivot": pivot, "max_iter": max_iter, "B": KERNEL_B, "mean_iters": float(it_k.float().mean()),
+            "phase": "kernel_vs_plain", "kernel": "nr_dense", "grid": name, "warm": warm is not None, "n": n,
+            "chord_iters": chord, "pivot": pivot, "max_iter": max_iter, "B": KERNEL_B,
+            "mean_iters": float(it_k.float().mean()),
             **agreement(d_k <= 1e-5, d_p <= 1e-5, [vr_k - vr_p, vi_k - vi_p], it_k, it_p),
             "ms": event_ms(kern, 20, 5, graph=True), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
             "geometry": nr_cuda.nr_dense_geometry(n, chord),
         }
-        row["bit_identical"] = bit_identical(row)
+        row["bit_identical"] = bit_identical(row) and bool(torch.equal(it_k, it_p))
         emit(row)
         check_agreement(row)
         rows.append(row)
@@ -394,32 +441,34 @@ def phase_step_vs_plain():
 def phase_parity():
     from gym_anm_tpu_torch import check
 
-    for env, cfg in check.CHECK_CONFIG.items():
+    runs = [(env, method, kw) for env, cfg in check.CHECK_CONFIG.items() for method, kw in cfg["methods"].items()]
+    runs += [(env, method, dict(check.CHECK_CONFIG[env]["methods"][method], warm_start=True))
+             for env, method in WARM_REPLAYS]
+    for env, method, kw in runs:
         data = check.load_reference(env)
         T = data["actions"].shape[0]
-        for method, kw in cfg["methods"].items():
-            core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method=method, **kw)
-            kernel = path_kernel(core)
-            zero_counts()
-            t0 = time.perf_counter()
-            sv, rw, tm = check.rollout_given(core, data["s0"], data["actions"], data["vars"])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            counts = read_counts()
-            res = check.compare_trajectories(
-                {k: data[k] for k in ("state_vec", "reward", "terminated")},
-                {"state_vec": sv.cpu().numpy(), "reward": rw.cpu().numpy(), "terminated": tm.cpu().numpy()},
-            )
-            emit({"phase": "parity", "env": env, "pf_method": method, "B": data["actions"].shape[1], "T": T,
-                  "seconds": seconds, "kernel": kernel, "launches": counts, **res})
-            if not res["pass"]:
-                raise AssertionError("parity replay failed: %s %s %s" % (env, method, res))
-            if kernel is not None and counts[kernel] < T + 1:
-                raise AssertionError("the %s replay launched %s %d times, expected >= %d"
-                                     % (method, kernel, counts[kernel], T + 1))
+        core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method=method, **kw)
+        kernel = path_kernel(core)
+        zero_counts()
+        t0 = time.perf_counter()
+        sv, rw, tm = check.rollout_given(core, data["s0"], data["actions"], data["vars"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        res = check.compare_trajectories(
+            {k: data[k] for k in ("state_vec", "reward", "terminated")},
+            {"state_vec": sv.cpu().numpy(), "reward": rw.cpu().numpy(), "terminated": tm.cpu().numpy()},
+        )
+        emit({"phase": "parity", "env": env, "pf_method": method, "warm_start": core.warm_start,
+              "B": data["actions"].shape[1], "T": T, "seconds": seconds, "kernel": kernel, "launches": counts, **res})
+        if not res["pass"]:
+            raise AssertionError("parity replay failed: %s %s %s" % (env, method, res))
+        if kernel is not None and counts[kernel] < T + 1:
+            raise AssertionError("the %s replay launched %s %d times, expected >= %d"
+                                 % (method, kernel, counts[kernel], T + 1))
 
 
-def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False):
+def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False, auto_reset=None):
     from gym_anm_tpu_torch import check
     from gym_anm_tpu_torch.envs.batched import BatchedEnv
 
@@ -427,7 +476,7 @@ def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False):
         dtype=torch.float32, device="cuda", pf_method=pf_method, warm_start=warm_start
     )
     kernel = path_kernel(core)
-    env = BatchedEnv(core, ROLLOUT_B)
+    env = BatchedEnv(core, ROLLOUT_B, auto_reset=auto_reset is not None, auto_reset_mode=auto_reset or "pool")
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
@@ -443,9 +492,11 @@ def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False):
         seconds.append(time.perf_counter() - t0)
         rewards.append(reward)
         terms.append(terminated)
+        if auto_reset is not None and bool(es.terminated.any()):
+            raise AssertionError("auto-reset (%s) left %d lanes terminated" % (auto_reset, int(es.terminated.sum())))
     counts = read_counts()
 
-    reward = torch.cat(rewards)
+    reward, terminated = torch.cat(rewards), torch.cat(terms)
     obs = env.core.observation(es)
     if reward.shape != (rollouts * T, ROLLOUT_B) or not bool(torch.isfinite(reward).all()):
         raise AssertionError("%s %s rollout rewards are not finite [T, B]" % (env_name, pf_method))
@@ -453,16 +504,80 @@ def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False):
         raise AssertionError("%s %s observations are not finite [B, obs_n]" % (env_name, pf_method))
     if bool(first.terminated.any()):
         raise AssertionError("reset left %d lanes terminated" % int(first.terminated.sum()))
+    if auto_reset is not None and not bool(terminated.any()):
+        raise AssertionError("no lane terminated: auto-reset (%s) was not exercised" % auto_reset)
     if counts[kernel] < 1 + rollouts * T:
         raise AssertionError("the %s %s path launched %s %d times" % (env_name, pf_method, kernel, counts[kernel]))
     steady = float(np.median(seconds[1:]))
     emit({
-        "phase": "rollout", "env": env_name, "pf_method": pf_method, "warm_start": warm_start, "B": ROLLOUT_B, "T": T,
-        "rollouts": rollouts, "reset_s": reset_s, "rollout_s": seconds, "env_steps_per_s": ROLLOUT_B * T / steady,
-        "terminated_frac": float(terms[-1][-1].float().mean()), "mean_reward": float(reward.mean()),
-        "kernel": kernel, "launches": counts,
+        "phase": "rollout", "env": env_name, "pf_method": pf_method, "warm_start": warm_start,
+        "auto_reset": auto_reset, "B": ROLLOUT_B, "T": T, "rollouts": rollouts, "reset_s": reset_s,
+        "rollout_s": seconds, "env_steps_per_s": ROLLOUT_B * T / steady,
+        # With auto-reset, the share of lane-steps that terminated (and were
+        # reborn); without, the share of lanes terminated at the end.
+        "terminated_frac": float((terminated if auto_reset else terms[-1][-1]).float().mean()),
+        "mean_reward": float(reward.mean()), "kernel": kernel, "launches": counts,
     })
     return kernel, counts[kernel]
+
+
+def check_finite(name, metrics, modules):
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    bad += [n for m in modules for n, p in m.named_parameters() if not bool(torch.isfinite(p).all())]
+    if bad:
+        raise AssertionError("%s: non-finite %s" % (name, bad))
+
+
+def phase_train():
+    """PPO, then SAC, with their default configurations over ANM6Easy at
+    B=4096; returns the tree kernel's launches in the PPO run."""
+    from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
+    from gym_anm_tpu_torch.rl import PPOTrainer, SACTrainer
+
+    core = make_core(torch.float32, "cuda")
+    kernel = path_kernel(core)
+    ppo = PPOTrainer(core, TRAIN_B, seed=0)
+    torch.cuda.synchronize()
+    zero_counts()
+    es = ppo.init_envs()
+    for it in range(PPO_ITERS):
+        t0 = time.perf_counter()
+        es, metrics = ppo.train_step(es)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        seconds = time.perf_counter() - t0
+        emit({"phase": "train", "trainer": "ppo", "iteration": it, "B": TRAIN_B, "seconds": seconds,
+              "env_steps": ppo.cfg.rollout_steps * TRAIN_B, **metrics})
+        check_finite("ppo", metrics, [ppo.model])
+    torch.cuda.synchronize()
+    ppo_counts = read_counts()
+    cfg = ppo.cfg
+    if ppo_counts[kernel] < 1 + PPO_ITERS * (1 + cfg.rollout_steps):
+        raise AssertionError("the PPO run launched %s %d times" % (kernel, ppo_counts[kernel]))
+
+    sac = SACTrainer(core, TRAIN_B, seed=0)
+    torch.cuda.synchronize()
+    zero_counts()
+    es, rb, obs = sac.init_envs()
+    for r in range(SAC_WARMUP):
+        t0 = time.perf_counter()
+        es, rb, obs = sac.warmup(es, rb, obs)
+        torch.cuda.synchronize()
+        emit({"phase": "train", "trainer": "sac", "warmup_round": r, "B": TRAIN_B, "seconds": time.perf_counter() - t0,
+              "replay_size": rb.size})
+    for it in range(SAC_ITERS):
+        t0 = time.perf_counter()
+        es, rb, obs, metrics = sac.train_step(es, rb, obs)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        seconds = time.perf_counter() - t0
+        emit({"phase": "train", "trainer": "sac", "iteration": it, "B": TRAIN_B, "seconds": seconds,
+              "env_steps": sac.cfg.collect_steps * TRAIN_B, "replay_size": rb.size, **metrics})
+        check_finite("sac", metrics, [sac.actor, sac.critic, sac.target])
+    torch.cuda.synchronize()
+    sac_counts = read_counts()
+    if sac_counts[kernel] < 1 + (SAC_WARMUP + SAC_ITERS) * (1 + sac.cfg.collect_steps):
+        raise AssertionError("the SAC run launched %s %d times" % (kernel, sac_counts[kernel]))
+    emit({"phase": "train", "kernel": kernel, "ppo_launches": ppo_counts, "sac_launches": sac_counts})
+    return ppo_counts[kernel]
 
 
 def main() -> int:
@@ -479,24 +594,30 @@ def main() -> int:
         }
         phase_parity()
         runs = [(case, phase_rollout(*case)) for case in ROLLOUT_CASES]
-        # Each kernel's launches on its first ANM6Easy path, a cold start.
+        # Each kernel's launches on its ANM6Easy path without auto-reset,
+        # cold and warm; K1 cold's on the main path of training.
         launches = {}
         for case, (kernel, n) in runs:
-            if case[0] == "anm6easy" and len(case) == 4:
-                launches.setdefault(kernel, n)
+            if case[0] == "anm6easy" and len(case) <= 5:
+                launches.setdefault((kernel, len(case) == 5 and case[4]), n)
+        launches["tree_nr", False] = phase_train()
     except Exception:
         traceback.print_exc()
         return 1
     kernels = []
     for name, rows in checks.items():
-        main_row = rows[0]  # ANM6 at B=4096 on the main path's settings
         source, replaces = KERNEL_INFO[name]
-        errs = [max(r["max_abs_err"], r.get("penalty_max_abs_err", 0.0)) for r in rows]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(errs), "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
-        })
+        for warm in ((False, True) if name in WARM_FORMS else (False,)):
+            # ANM6 at B=4096 on the main path's settings, this form's rows.
+            form = [r for r in rows if r.get("warm", False) == warm]
+            main_row = form[0]
+            errs = [max(r["max_abs_err"], r.get("penalty_max_abs_err", 0.0)) for r in form]
+            kernels.append({
+                "name": name + ("_warm" if warm else ""), "route": "cuda", "source": source,
+                "replaces": WARM_FORMS[name] if warm else replaces, "launches": launches[name, warm],
+                "max_abs_err": max(errs), "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
+            })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

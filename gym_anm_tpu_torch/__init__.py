@@ -13,4 +13,7 @@ Main path: :func:`gym_anm_tpu_torch.envs.anm6.anm6_easy.make_core` ->
 ``transition`` -> ``ops.tree_cuda.solve_pfe_tree`` (``pf_method="tree"``),
 ``ops.nr_cuda.solve_pfe_nr`` (``"pallas"``, ``"hybrid"``) or
 ``ops.step_cuda.fused_transition`` (``"fused"``, ``"fused_hybrid"``).
+Training: :mod:`gym_anm_tpu_torch.rl` (PPO, SAC) over ``BatchedEnv`` with
+auto-reset; :mod:`gym_anm_tpu_torch.checkpoint` saves and restores state
+trees.
 """

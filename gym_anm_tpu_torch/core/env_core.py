@@ -22,6 +22,10 @@ The task hooks take an explicit ``torch.Generator``:
   MW/MVAr/MWh layout ``[dev_p, dev_q, des_soc, gen_p_max, aux]``;
 * ``next_vars_fn(state_vec [B, n], generator) -> [B, n_load + n_gen + K]``
   ``= [P_load (MW), P_pot (MW), aux]``.
+
+Observations are a compiled gather of the packed observables
+(``obs_values``, :mod:`.obs`), the clipped state vector when the gather is
+the state's, or a callable ``obs_fn`` of the state vector.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ import torch
 
 from ..errors import EnvInitializationError
 from .grid import GridSpec, GridTensors
-from .obs import compile_gather, state_values_spec
+from .obs import GatherSpec, compile_gather, pack_observables, state_values_spec
 from .state import SimState, select_state, zeros_state
-from .transition import PF_METHODS, check_warm_start, resolve_solver_path, sim_reset, transition
+from .transition import PF_METHODS, sim_reset, transition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,11 +94,16 @@ class EnvCore:
     (the hybrid methods' chord prefix) and ``nr_pivot`` (partial pivoting in
     the dense NR elimination) keep the JAX package's defaults.
     ``warm_start`` warm-starts each step's power flow from the previous
-    step's solved bus voltages (``pf_method="tree"`` only; reset solves and
-    absorbing or reborn lanes flat-start); off by default, as the reference
-    flat-starts every solve.
-    Observations are the clipped canonical state vector (fully observable
-    tasks); packing other observables is not ported yet.
+    step's solved bus voltages (every path but the fused ones; reset solves
+    and absorbing or reborn lanes flat-start); off by default, as the
+    reference flat-starts every solve.
+
+    ``obs_values`` (a list of ``(quantity, ids, unit)``) compiles into
+    ``obs_gather``; when it is the state vector's layout the observation is
+    the clipped state vector itself.  Without it, ``obs_fn(state_vec [B,
+    state_n]) -> [B, k]`` gives the observation, and without either the
+    state vector stands in for it (``obs_n`` is then None, as in the JAX
+    package).
     """
 
     def __init__(
@@ -105,9 +114,11 @@ class EnvCore:
         device,
         dtype: torch.dtype,
         costs_clipping=(None, None),
+        obs_values=None,
         aux_bounds=None,
         init_state_fn: Optional[Callable] = None,
         next_vars_fn: Optional[Callable] = None,
+        obs_fn: Optional[Callable] = None,
         x_tol: float = 1e-5,
         max_iter: int = 100,
         pf_method: str = "tree",
@@ -130,6 +141,7 @@ class EnvCore:
         self.aux_bounds = aux_bounds
         self.init_state_fn = init_state_fn
         self.next_vars_fn = next_vars_fn
+        self.obs_fn = obs_fn
         self.x_tol = x_tol
         self.max_iter = max_iter
         self.pf_method = pf_method
@@ -137,16 +149,33 @@ class EnvCore:
         self.chord_iters = int(chord_iters)
         self.nr_pivot = bool(nr_pivot)
         self.warm_start = bool(warm_start)
-        if self.warm_start:
-            check_warm_start(resolve_solver_path(self.grid, pf_method)[0], pf_method)
+        if self.warm_start and pf_method in ("fused", "fused_hybrid"):
+            raise ValueError(
+                "warm_start is not supported on the fused whole-transition kernel "
+                "(pf_method=%r); use 'pallas'/'hybrid'/'tree'" % (pf_method,)
+            )
 
         self.state_values = state_values_spec(spec, self.K)
         self.state_gather = compile_gather(spec, self.state_values, self.K, aux_bounds)
         self.state_n = self.state_gather.n
-        self.obs_n = self.state_n
-        t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device).to(dtype)
-        self.obs_low = t(self.state_gather.low)
-        self.obs_high = t(self.state_gather.high)
+        self.obs_values = obs_values
+        self.obs_gather: Optional[GatherSpec] = None
+        self.obs_n = None
+        self._obs_is_state = False
+        if obs_values is not None:
+            self.obs_gather = compile_gather(spec, obs_values, self.K, aux_bounds)
+            self.obs_n = self.obs_gather.n
+            # Fully observable: the observation is the state vector itself
+            # (same gather indices and scales), so no packing is needed.
+            self._obs_is_state = bool(
+                np.array_equal(self.obs_gather.idx, self.state_gather.idx)
+                and np.allclose(self.obs_gather.scale, self.state_gather.scale)
+            )
+            t = lambda a: torch.as_tensor(np.asarray(a), device=self.device)
+            self._obs_tables = GatherSpec(
+                idx=t(self.obs_gather.idx).long(), scale=t(self.obs_gather.scale).to(dtype),
+                low=t(self.obs_gather.low).to(dtype), high=t(self.obs_gather.high).to(dtype),
+            )
 
         # Action bounds [P_gen, Q_gen, P_des, Q_des] x baseMVA, each block
         # ordered by device ID (simulator.py:341-380, anm_env.py:475-495).
@@ -187,9 +216,29 @@ class EnvCore:
         )
         return torch.where(_lanes(terminated, vec), torch.zeros_like(vec), vec)
 
+    @property
+    def obs_from_state_vec(self) -> bool:
+        """True when observations never read raw ``SimState`` fields (the
+        fully observable path, a callable ``obs_fn``, or no observation
+        specification)."""
+        return self.obs_gather is None or self._obs_is_state
+
+    def state_vec(self, es: EnvState):
+        """The canonical state vector s_t (cached on the EnvState)."""
+        return es.state_vec
+
     def observation(self, es: EnvState):
-        """o_t = clip(s_t) (anm_env.py:313-331), zeros if terminal."""
-        obs = torch.clamp(es.state_vec, self.obs_low, self.obs_high)
+        """o_t = clip(extract(s_t)) (anm_env.py:313-331), zeros if terminal."""
+        if self.obs_gather is not None and self._obs_is_state:
+            obs = torch.clamp(es.state_vec, self._obs_tables.low, self._obs_tables.high)
+        elif self.obs_gather is not None:
+            obs = self._obs_tables(pack_observables(self.spec, es.sim, es.aux), clip=True)
+        elif self.obs_fn is not None:
+            obs = self.obs_fn(self.state_vec(es))
+            obs = obs[:, None] if obs.dim() == 1 else obs
+        else:
+            # No observation specification: the state vector stands in.
+            obs = self.state_vec(es)
         return torch.where(_lanes(es.terminated, obs), torch.zeros_like(obs), obs)
 
     # ------------------------------------------------------------------

@@ -1,19 +1,16 @@
-"""Observation & state-vector layout (host NumPy).
+"""Observation & state-vector machinery.
 
-The counterpart of the host side of ``gym_anm_tpu.core.obs``: every
-electrical quantity has a place in one flat "packed observables" vector
-(p.u./rad, ID-sorted report order), and an observation specification -- a
-list of ``(quantity, ids, unit)`` -- is compiled once into static
-``(index, scale, low, high)`` arrays:
+The counterpart of ``gym_anm_tpu.core.obs``: every electrical quantity is
+packed into one flat "packed observables" vector (p.u./rad, ID-sorted
+report order, :func:`pack_observables`), and an observation specification
+-- a list of ``(quantity, ids, unit)`` -- is compiled once on the host into
+static ``(index, scale, low, high)`` arrays (:func:`compile_gather`).  At
+run time an observation is one gather:
 
     obs = clip(packed[idx] * scale, low, high)
 
 All supported units are linear scalings of the p.u./rad values (MW/MVAr/MVA/
 MWh: x baseMVA; kV: x baseKV; kA: x baseMVA/baseKV; degree: x 180/pi).
-
-ANM6Easy's observation is its state vector, which the env core assembles
-directly from ``SimState`` fields; packing the other observables on the
-device is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,9 +18,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..errors import ObsNotSupportedError
 from .grid import GridSpec
+from .state import SimState
 
 # Packed-vector segment order. Bus quantities are in ascending-bus-ID
 # (report) order, devices in ascending device ID, branches in input order.
@@ -78,6 +77,39 @@ def packed_offsets(spec: GridSpec, K: int) -> dict:
         off += len(ids[k])
     offsets["_total"] = off
     return offsets
+
+
+def pack_observables(spec: GridSpec, sim: SimState, aux) -> torch.Tensor:
+    """Flatten a SimState (+ aux vars) into the packed observable vector
+    ``[..., total]``, in the dtype and on the device of ``sim``.
+
+    p.u./rad everywhere.  ``branch_i_magn`` is Re(i_from): the reference
+    computes ``np.sign(i).real * np.abs(i)`` (simulator.py:613), which under
+    NumPy>=2 complex-sign semantics (sign(z) = z/|z|) equals the real part.
+    """
+    dtype, device = sim.dev_p.dtype, sim.dev_p.device
+    srt = torch.as_tensor(np.asarray(spec.bus_sorted, dtype=np.int64), device=device)
+    vr, vi = sim.bus_v_re[..., srt], sim.bus_v_im[..., srt]
+    ir, ii = sim.bus_i_re[..., srt], sim.bus_i_im[..., srt]
+    segs = [
+        sim.bus_p[..., srt],
+        sim.bus_q[..., srt],
+        torch.sqrt(vr * vr + vi * vi),
+        torch.atan2(vi, vr),
+        torch.sqrt(ir * ir + ii * ii),
+        torch.atan2(ii, ir),
+        sim.dev_p,
+        sim.dev_q,
+        sim.des_soc,
+        sim.gen_p_pot,
+        sim.br_p_from,
+        sim.br_q_from,
+        sim.br_s,
+        sim.br_if_re,
+        torch.atan2(sim.br_if_im, sim.br_if_re),
+        torch.as_tensor(aux, device=device),
+    ]
+    return torch.cat([s.to(dtype) for s in segs], dim=-1)
 
 
 def _unit_scale(spec: GridSpec, key: str, unit, ext_id) -> float:
@@ -176,12 +208,22 @@ def state_bounds(spec: GridSpec) -> dict:
 @dataclasses.dataclass(frozen=True)
 class GatherSpec:
     """Compiled extraction of a state/observation vector from the packed
-    observables: ``vec = clip(packed[idx] * scale, low, high)`` (NumPy)."""
+    observables: ``vec = clip(packed[idx] * scale, low, high)``.
+
+    :func:`compile_gather` makes one with NumPy fields; a copy with tensor
+    fields on the packed vector's device saves the copies per call."""
 
     idx: np.ndarray  # [m] int32
     scale: np.ndarray  # [m]
     low: np.ndarray  # [m]
     high: np.ndarray  # [m]
+
+    def __call__(self, packed: torch.Tensor, clip: bool = False) -> torch.Tensor:
+        t = lambda a: torch.as_tensor(a, device=packed.device)
+        vec = packed[..., t(self.idx).long()] * t(self.scale).to(packed.dtype)
+        if clip:
+            vec = torch.clamp(vec, t(self.low).to(packed.dtype), t(self.high).to(packed.dtype))
+        return vec
 
     @property
     def n(self) -> int:

@@ -169,21 +169,6 @@ def resolve_solver_path(g: GridTensors, pf_method: str):
     return "torch", eff
 
 
-def check_warm_start(path: str, pf_method: str):
-    """Raise unless the solver path :func:`resolve_solver_path` chose has a
-    warm start: only the tree-NR kernel (and its plain twin) has one."""
-    if path == "fused_kernel":
-        raise ValueError(
-            "warm starts (v_init) are not supported on the fused whole-transition "
-            "kernel; use pf_method='tree' for warm-started solves"
-        )
-    if path != "tree_kernel":
-        raise ValueError(
-            "warm starts (v_init) are ported for pf_method='tree' only: the warm form of "
-            "the dense-NR kernel (pf_method=%r) is not ported yet (ROADMAP, Queue 1 item 9)" % (pf_method,)
-        )
-
-
 def _fused(g: GridTensors, args, x_tol, max_iter, chord_iters, nr_pivot) -> TransitionResult:
     """The whole transition in one launch (``ops/step_cuda.py``)."""
     o = fused_transition(
@@ -252,12 +237,16 @@ def transition(
     (``SimState.bus_v_re/bus_v_im``): per lane the solve starts from
     whichever of {warm point, flat start} has the smaller true mismatch;
     absorbing and reborn lanes (zero or out-of-window voltages) flat-start,
-    and the convergence decision is unchanged.  Only ``"tree"`` has a warm
-    start; every other path raises.
+    and the convergence decision is unchanged.  The fused paths have no warm
+    start and raise.
     """
     path, method = resolve_solver_path(g, pf_method)
-    if v_init is not None:
-        check_warm_start(path, pf_method)
+    if v_init is not None and path == "fused_kernel":
+        # As in the JAX package: the whole-transition kernel has no warm form.
+        raise ValueError(
+            "warm starts (v_init) are not supported on the fused whole-transition "
+            "kernel; use pf_method='pallas'/'hybrid'/'tree' for warm-started solves"
+        )
     chord = chord_iters if method in ("hybrid", "fused_hybrid") else 0
     if path == "fused_kernel":
         args = (des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des)
@@ -280,12 +269,13 @@ def transition(
     elif path == "nr_kernel":
         v_re, v_im, _, _, converged = solve_pfe_nr(
             g.Y_re, g.Y_im, g.J0inv, p_in, q_in,
-            x_tol=x_tol, max_iter=max_iter, chord_iters=chord, pivot=nr_pivot,
+            x_tol=x_tol, max_iter=max_iter, chord_iters=chord, pivot=nr_pivot, init=v_init,
         )
     else:
         v_re, v_im, _, _, converged = solve_pfe(
             g.Y_re, g.Y_im, p_in, q_in, x_tol=x_tol, max_iter=max_iter,
             method="hybrid" if method == "xla_hybrid" else method, chord_iters=chord_iters, J0inv=g.J0inv,
+            init=v_init,
         )
 
     # Nodal currents I = Y V and slack power (solve_load_flow.py:54-72; NaN

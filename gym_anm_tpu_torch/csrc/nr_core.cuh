@@ -6,7 +6,9 @@
 // of operations of its plain PyTorch twin
 // gym_anm_tpu_torch/ops/nr_cuda.py::nr_core_plain:
 //
-// * flat start (theta = 0, |V| = 1, the slack pinned at 1 + 0j);
+// * flat start (theta = 0, |V| = 1, the slack pinned at 1 + 0j) or, given
+//   a warm point, whichever of {warm, flat} has the smaller mismatch (the
+//   warm point only where its mismatch is finite and strictly smaller);
 // * an optional chord prefix x <- x - J0inv F(x) with the constant
 //   flat-start Jacobian inverse; a lane that ends it worse than it started
 //   (or NaN) restarts from the flat start, keeping its iteration count;
@@ -422,6 +424,15 @@ __device__ inline void chord_step(const Team<T>& tm, const TableView& tv, const 
   tm.sync();
 }
 
+// A warm point for one lane: its column b of theta and |V| [m, B] in device
+// memory (sanitised by the caller), or th == nullptr for a cold start.  It
+// is read where it is used, so it takes no shared memory.
+struct WarmPoint {
+  const float* th;
+  const float* vm;
+  int B, b;
+};
+
 // The whole solve for one lane with injections ln.p, ln.q (written by the
 // threads that own their buses).  On return ln.vr, ln.vi, ln.ir, ln.ii
 // describe the last accepted point for every bus, slack included, and are
@@ -429,12 +440,29 @@ __device__ inline void chord_step(const Team<T>& tm, const TableView& tv, const 
 // *it_out the chord + NR iterations taken.
 template <class C>
 __device__ inline float solve(const Team<C::T>& tm, const TableView& tv, const Lane& ln, float x_tol, int max_iter,
-                              int chord_iters, bool pivot, int* it_out) {
+                              int chord_iters, bool pivot, int* it_out,
+                              WarmPoint warm = WarmPoint{nullptr, nullptr, 0, 0}) {
   if (tm.t == 0) {
     ln.vr(0) = 1.0f;
     ln.vi(0) = 0.0f;
   }
   float diff = flat_start(tm, tv, ln);
+  if (warm.th != nullptr) {
+    // Best of {warm, flat}: the warm point where its mismatch is finite and
+    // smaller than the flat start's (a tie keeps the flat start).  The flat
+    // start's state is not kept; where it wins it is evaluated again, bit
+    // for bit.  diff is the team's reduction, so the choice is the team's.
+    for (int s = tm.t; s < ln.L.m; s += C::T) {
+      ln.theta(s) = warm.th[(size_t)s * warm.B + warm.b];
+      ln.vm(s) = warm.vm[(size_t)s * warm.B + warm.b];
+    }
+    const float diff_w = evaluate(tm, tv, ln);
+    if (isfinite(diff_w) && diff_w < diff) {
+      diff = diff_w;
+    } else {
+      flat_start(tm, tv, ln);
+    }
+  }
   int it = 0;
   if (chord_iters > 0) {
     const float diff0 = diff;

@@ -74,9 +74,10 @@ def make_core(
     every method (every converging solve finishes in <= 8 iterations; its
     parity check runs ``"hybrid"`` with 6, see ``check.CHECK_CONFIG``).
     ``warm_start`` warm-starts each step's solve from the previous step's
-    voltages (``"tree"`` only, off by default)."""
+    voltages (every method but the fused ones, off by default)."""
     from ...core.env_core import EnvCore
     from ...core.grid import build_grid
+    from ...core.obs import state_values_spec
     from .network import network
 
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
@@ -92,6 +93,7 @@ def make_core(
         device=device,
         dtype=dtype,
         costs_clipping=(1, 100),
+        obs_values=state_values_spec(spec, K),  # fully observable
         aux_bounds=np.array([[0, 95]]),
         init_state_fn=lambda generator, batch_size: anm6easy_init_state(generator, batch_size, P_loads, P_maxs),
         next_vars_fn=lambda s, generator: anm6easy_next_vars(s, P_loads, P_maxs),

@@ -45,11 +45,12 @@ def make_core(
     computing on ``device`` (the card unless the caller passes ``"cpu"``) in
     ``dtype``.  ``pf_max_iter=None`` takes :func:`pf_max_iter_for`.
     ``warm_start`` warm-starts each step's solve from the previous step's
-    voltages (``"tree"`` only, off by default).  ``network`` replaces the
+    voltages (every method but the fused ones, off by default).  ``network`` replaces the
     33-bus feeder with another radial network dict under the same dynamics
     (the 141-bus task, ``envs/feeder141.py``)."""
     from ..core.env_core import EnvCore
     from ..core.grid import build_grid
+    from ..core.obs import state_values_spec
     from .feeder_networks import make_feeder_network
 
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
@@ -96,6 +97,7 @@ def make_core(
         device=device,
         dtype=dtype,
         costs_clipping=(1, 100),
+        obs_values=state_values_spec(spec, K),  # fully observable
         aux_bounds=np.array([[0, 95]]),
         init_state_fn=init_state_fn,
         next_vars_fn=next_vars_fn,

@@ -112,6 +112,7 @@ def load_library() -> ctypes.CDLL:
             lib.tree_nr_geometry.restype = ci
             lib.nr_dense_solve_f32.argtypes = [
                 vp, vp, vp, vp, vp,  # Y_re, Y_im, J0inv, p, q
+                vp, vp,  # th_w, vm_w (both null: cold start)
                 ci, ci, cf, ci, ci, ci,  # n, B, x_tol, max_iter, chord_iters, pivot
                 vp, vp, vp, vp,  # v_re, v_im, diff, n_iter
                 vp,  # stream

@@ -5,7 +5,10 @@ The counterpart of ``gym_anm_tpu.ops.pallas_nr``.  Per env lane it computes
 the same thing as the TPU kernel ``_nr_tile_kernel`` and its body
 ``nr_core``:
 
-* flat start (theta = 0, |V| = 1; the slack pinned at 1 + 0j);
+* flat start (theta = 0, |V| = 1; the slack pinned at 1 + 0j) or, given a
+  warm point (the TPU kernel's ``warm=True`` form), whichever of {warm,
+  flat} has the smaller mismatch: the warm point only where its mismatch is
+  finite and strictly smaller;
 * an optional chord prefix of ``chord_iters`` steps x <- x - J0inv F(x) with
   the host-computed flat-start Jacobian inverse; lanes the prefix made worse
   (or NaN) restart from the flat start, keeping their iteration count;
@@ -20,8 +23,7 @@ operations (``csrc/nr_core.cuh``), batch-last on ``[*, B]`` tensors of any
 float dtype and device.  :func:`solve_pfe_nr` dispatches on the tensor's
 device: a CUDA float32 tensor launches the kernel (``csrc/nr_dense.cu``); a
 CPU tensor runs the plain twin; a CUDA float64 tensor raises.  There is no
-fallback from the GPU.  Warm starts (the TPU kernel's ``warm=True``
-variant) are not ported.  The plain twin with pivoting is also the port's
+fallback from the GPU.  The plain twin with pivoting is also the port's
 plain dense solver (``ops/power_flow.py::solve_pfe``).
 """
 
@@ -37,9 +39,10 @@ KERNEL_LAUNCHES = 0
 NN_MAX = 64
 
 
-def nr_dense_flops_per_lane(n: int, nr_iters: int, chord_iters: int = 0) -> int:
+def nr_dense_flops_per_lane(n: int, nr_iters: int, chord_iters: int = 0, warm: bool = False) -> int:
     """FLOPs one lane of the dense-NR solve needs for ``chord_iters`` chord
-    steps and ``nr_iters`` NR steps, counted from ``csrc/nr_core.cuh``.
+    steps and ``nr_iters`` NR steps, counted from ``csrc/nr_core.cuh``;
+    ``warm`` adds the warm point's evaluation.
 
     Adds, multiplies, divides, square roots and sines/cosines count 1;
     compares, selects, absolute values and row swaps 0 (so pivoting adds
@@ -48,8 +51,9 @@ def nr_dense_flops_per_lane(n: int, nr_iters: int, chord_iters: int = 0) -> int:
     triangular elimination ``sum_{j<nn} j (2 j + 3)``, the back
     substitution ``nn^2 + nn``, the update ``2 m`` and an evaluation; one
     chord step ``2 nn^2 + 2 m`` and an evaluation.  The flat-start
-    evaluation a restarted lane repeats after the chord prefix is not
-    counted, so on such lanes this is a slight undercount.
+    evaluation the kernel repeats on a lane restarted after the chord
+    prefix, or warm-started where the flat start won, is not counted, so on
+    such lanes this is a slight undercount.
     """
     m = n - 1
     nn = 2 * m
@@ -57,7 +61,7 @@ def nr_dense_flops_per_lane(n: int, nr_iters: int, chord_iters: int = 0) -> int:
     eliminate = sum(j * (2 * j + 3) for j in range(nn))
     nr_step = (28 * m * m + 6 * m + 6 * n) + eliminate + (nn * nn + nn) + 2 * m + evaluate
     chord_step = 2 * nn * nn + 2 * m + evaluate
-    return evaluate + chord_iters * chord_step + nr_iters * nr_step
+    return (2 if warm else 1) * evaluate + chord_iters * chord_step + nr_iters * nr_step
 
 
 def nr_flops_per_lane(n: int, max_iter: int, chord_iters: int = 0, pivot: bool = True) -> int:
@@ -152,11 +156,16 @@ def _solve_system(Ab, pivot):
     return dx
 
 
-def nr_core_plain(Yre, Yim, J0inv, p, q, *, x_tol, max_iter, chord_iters, pivot=False):
+def nr_core_plain(Yre, Yim, J0inv, p, q, *, x_tol, max_iter, chord_iters, pivot=False, init=None):
     """The plain twin of the kernel's per-lane solve, batch-last.
 
     ``Yre, Yim [n, n]``, ``J0inv [2m, 2m]`` (read when ``chord_iters > 0``),
-    ``p, q [m, B]``.  Returns ``(vr, vi, ir, ii, diff, it)``: the bus
+    ``p, q [m, B]``.  ``init`` optionally gives a warm point ``(theta [m, B],
+    vm [m, B])``, sanitised by
+    :func:`~gym_anm_tpu_torch.ops.power_flow.warm_init_theta_vm`: each lane
+    starts from it where its mismatch is finite and smaller than the flat
+    start's; lanes the chord prefix made worse restart from the flat start
+    either way.  Returns ``(vr, vi, ir, ii, diff, it)``: the bus
     voltages and currents ``[n, B]`` of the last accepted point, its
     mismatch inf-norm ``[B]`` and the chord + NR iterations ``[B]`` int32.
     Lanes stop as the kernel's do; the loops end once no lane is active.
@@ -175,8 +184,12 @@ def nr_core_plain(Yre, Yim, J0inv, p, q, *, x_tol, max_iter, chord_iters, pivot=
         return (torch.where(active, a, b) for a, b in zip((theta - dx[:m], vm - dx[m:]) + new, carried))
 
     state = flat
+    if init is not None:
+        warm = (init[0], init[1]) + _evaluate(Yre, Yim, init[0], init[1], p, q)
+        use_w = torch.isfinite(warm[-1]) & (warm[-1] < diff)
+        state = tuple(torch.where(use_w, a, b) for a, b in zip(warm, flat))
     if chord_iters > 0:
-        diff0 = diff
+        diff0 = state[-1]
         for _ in range(chord_iters):
             active = state[-1] > x_tol  # NaN freezes the lane
             if not bool(active.any()):
@@ -201,10 +214,10 @@ def nr_core_plain(Yre, Yim, J0inv, p, q, *, x_tol, max_iter, chord_iters, pivot=
     return vr, vi, ir, ii, diff, it
 
 
-def _check_kernel_args(Y_re, Y_im, J0inv, p, q):
+def _check_kernel_args(Y_re, Y_im, J0inv, p, q, init):
     n = Y_re.shape[0]
     m = n - 1
-    for name, t in (("p", p), ("q", q)):
+    for name, t in (("p", p), ("q", q)) + (() if init is None else (("theta_w", init[0]), ("vm_w", init[1]))):
         if not t.is_cuda:
             raise ValueError("%s must be a CUDA tensor for the dense-NR kernel" % name)
         if t.dtype != torch.float32:
@@ -213,8 +226,8 @@ def _check_kernel_args(Y_re, Y_im, J0inv, p, q):
             raise ValueError("%s must be contiguous" % name)
         if t.dim() != 2 or t.shape[0] != m:
             raise ValueError("%s must be [m=%d, B]; got %s" % (name, m, tuple(t.shape)))
-    if p.shape != q.shape or p.device != q.device:
-        raise ValueError("p and q must have one shape and one device")
+    if any(t.shape != p.shape or t.device != p.device for t in (q,) + (() if init is None else tuple(init))):
+        raise ValueError("p, q and the warm point must have one shape and one device")
     if 2 * m > NN_MAX:
         raise ValueError("the dense-NR kernel solves up to %d unknowns; this grid has %d" % (NN_MAX, 2 * m))
     for name, t, shape in (("Y_re", Y_re, (n, n)), ("Y_im", Y_im, (n, n)), ("J0inv", J0inv, (2 * m, 2 * m))):
@@ -225,18 +238,19 @@ def _check_kernel_args(Y_re, Y_im, J0inv, p, q):
         raise ValueError("empty batch")
 
 
-def solve_pfe_nr_cuda(Y_re, Y_im, J0inv, p, q, x_tol=1e-5, max_iter=10, chord_iters=0, pivot=False):
+def solve_pfe_nr_cuda(Y_re, Y_im, J0inv, p, q, x_tol=1e-5, max_iter=10, chord_iters=0, pivot=False, init=None):
     """Launch the CUDA dense-NR kernel (``csrc/nr_dense.cu``).
 
     ``p, q [m, B]`` contiguous float32 CUDA tensors; ``Y_re, Y_im [n, n]`` and
-    ``J0inv [2m, 2m]`` on the same device.  Returns ``(v_re [n, B], v_im
+    ``J0inv [2m, 2m]`` on the same device; ``init`` an optional warm point
+    ``(theta [m, B], vm [m, B])`` like them (:func:`nr_core_plain`).  Returns ``(v_re [n, B], v_im
     [n, B], diff [B], n_iter [B] int32)``; raises on anything else and when
     the launch fails.
     """
     global KERNEL_LAUNCHES
     from ._build import load_library
 
-    _check_kernel_args(Y_re, Y_im, J0inv, p, q)
+    _check_kernel_args(Y_re, Y_im, J0inv, p, q, init)
     lib = load_library()
     n = Y_re.shape[0]
     B = p.shape[1]
@@ -244,8 +258,9 @@ def solve_pfe_nr_cuda(Y_re, Y_im, J0inv, p, q, x_tol=1e-5, max_iter=10, chord_it
     v_im = torch.empty_like(v_re)
     diff = torch.empty((B,), dtype=torch.float32, device=p.device)
     n_iter = torch.empty((B,), dtype=torch.int32, device=p.device)
+    th_w, vm_w = (None, None) if init is None else (init[0].data_ptr(), init[1].data_ptr())
     rc = lib.nr_dense_solve_f32(
-        Y_re.data_ptr(), Y_im.data_ptr(), J0inv.data_ptr(), p.data_ptr(), q.data_ptr(),
+        Y_re.data_ptr(), Y_im.data_ptr(), J0inv.data_ptr(), p.data_ptr(), q.data_ptr(), th_w, vm_w,
         n, B, ctypes.c_float(x_tol), int(max_iter), int(chord_iters), int(bool(pivot)),
         v_re.data_ptr(), v_im.data_ptr(), diff.data_ptr(), n_iter.data_ptr(),
         torch.cuda.current_stream(p.device).cuda_stream,
@@ -265,20 +280,26 @@ def nr_dense_geometry(n: int, chord_iters: int = 0) -> dict:
     return read_geometry(load_library().nr_dense_geometry, int(n), int(chord_iters))
 
 
-def solve_pfe_nr(Y_re, Y_im, J0inv, p, q, x_tol=1e-5, max_iter=10, chord_iters=0, pivot=False):
-    """Batched dense-NR solve, the port of ``solve_pfe_pallas`` (cold start).
+def solve_pfe_nr(Y_re, Y_im, J0inv, p, q, x_tol=1e-5, max_iter=10, chord_iters=0, pivot=False, init=None):
+    """Batched dense-NR solve, the port of ``solve_pfe_pallas``.
 
-    ``p, q [B, m]`` non-slack injections.  A CUDA tensor launches the kernel
+    ``p, q [B, m]`` non-slack injections.  ``init`` optionally warm-starts
+    from previous bus voltages ``(v_re [B, n], v_im [B, n])``, sanitised by
+    :func:`~gym_anm_tpu_torch.ops.power_flow.warm_init_theta_vm`, with the
+    per-lane best-of-{warm, flat} guard.  A CUDA tensor launches the kernel
     (float32 only); a CPU tensor runs :func:`nr_core_plain`.  Returns
     ``(v_re [B, n], v_im [B, n], diff [B], n_iter [B], converged [B])``.
     """
+    from .power_flow import warm_init_theta_vm
+
     pT, qT = p.T.contiguous(), q.T.contiguous()
+    warm = None
+    if init is not None:
+        th, vm, _ = warm_init_theta_vm(init[0], init[1], p.shape[1], p.dtype)
+        warm = (th.contiguous(), vm.contiguous())
+    kw = dict(x_tol=x_tol, max_iter=max_iter, chord_iters=chord_iters, pivot=pivot, init=warm)
     if p.is_cuda:
-        vr, vi, diff, n_iter = solve_pfe_nr_cuda(
-            Y_re, Y_im, J0inv, pT, qT, x_tol=x_tol, max_iter=max_iter, chord_iters=chord_iters, pivot=pivot
-        )
+        vr, vi, diff, n_iter = solve_pfe_nr_cuda(Y_re, Y_im, J0inv, pT, qT, **kw)
     else:
-        vr, vi, _, _, diff, n_iter = nr_core_plain(
-            Y_re, Y_im, J0inv, pT, qT, x_tol=x_tol, max_iter=max_iter, chord_iters=chord_iters, pivot=pivot
-        )
+        vr, vi, _, _, diff, n_iter = nr_core_plain(Y_re, Y_im, J0inv, pT, qT, **kw)
     return vr.T, vi.T, diff, n_iter, diff <= x_tol

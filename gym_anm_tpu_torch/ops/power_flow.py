@@ -4,9 +4,10 @@ The counterpart of ``gym_anm_tpu.ops.power_flow`` (the reference solver
 ``gym_anm/simulator/solve_load_flow.py:7-226``): :func:`solve_pfe` with the
 methods ``scan``, ``while`` and ``hybrid`` (the flat start, an optional
 chord prefix, then true-NR steps; the inf-norm of the mismatch <= x_tol
-stops a lane, NaN freezes it), the host builder
+stops a lane, NaN freezes it; ``init=`` warm-starts each lane from the
+better of {warm point, flat start}), the host builder
 :func:`flat_start_jacobian_inv_np` and :func:`warm_init_theta_vm`, the warm
-point of the tree solver's warm start.
+point of every solver's warm start.
 
 The JAX package's XLA solver and the body of its dense-NR kernel compute the
 same iteration, so one plain solver serves both here: :func:`solve_pfe` runs
@@ -84,7 +85,7 @@ def warm_init_theta_vm(v_re, v_im, m, dt):
     return theta, vm, valid
 
 
-def solve_pfe(Y_re, Y_im, p, q, x_tol=1e-5, max_iter=100, method="scan", chord_iters=16, J0inv=None):
+def solve_pfe(Y_re, Y_im, p, q, x_tol=1e-5, max_iter=100, method="scan", chord_iters=16, J0inv=None, init=None):
     """Newton-Raphson solve of the AC power-flow equations.
 
     ``Y_re, Y_im [n, n]`` tensors; ``p, q [B, m]`` non-slack injections in
@@ -97,7 +98,13 @@ def solve_pfe(Y_re, Y_im, p, q, x_tol=1e-5, max_iter=100, method="scan", chord_i
     iterations x <- x - J0inv F(x) with the constant flat-start Jacobian
     inverse ``J0inv [2m, 2m]`` (computed from Y when not given); lanes the
     chord phase made worse (or NaN) restart the ``max_iter`` true-NR
-    iterations from the flat start.  Warm starts are not ported.
+    iterations from the flat start.
+
+    ``init`` optionally warm-starts from previous bus voltages ``(v_re
+    [B, n], v_im [B, n])``: each lane starts from whichever of {warm point,
+    flat start} has the smaller true mismatch, lanes with non-finite or
+    out-of-window voltages flat-start (:func:`warm_init_theta_vm`), and the
+    convergence decision is unchanged.
 
     Returns ``(v_re [B, n], v_im [B, n], diff [B], n_iter [B] int32,
     converged [B])``; ``n_iter`` counts the chord and the NR iterations.
@@ -109,7 +116,8 @@ def solve_pfe(Y_re, Y_im, p, q, x_tol=1e-5, max_iter=100, method="scan", chord_i
         if J0inv is None:
             J0inv = flat_start_jacobian_inv_np(Y_re.cpu().numpy(), Y_im.cpu().numpy())
         J0inv = torch.as_tensor(J0inv, device=p.device).to(p.dtype)
+    warm = None if init is None else warm_init_theta_vm(init[0], init[1], p.shape[1], p.dtype)[:2]
     vr, vi, _, _, diff, n_iter = nr_core_plain(
-        Y_re, Y_im, J0inv, p.T, q.T, x_tol=x_tol, max_iter=max_iter, chord_iters=chord, pivot=True
+        Y_re, Y_im, J0inv, p.T, q.T, x_tol=x_tol, max_iter=max_iter, chord_iters=chord, pivot=True, init=warm
     )
     return vr.T, vi.T, diff, n_iter, diff <= x_tol

@@ -7,9 +7,9 @@ another commit unpacked with ``git archive`` under ``build/checkout/``
 (git-ignored).  On one GPU, for each ROOT in the order given, a fresh
 process imports that checkout's ``gym_anm_tpu_torch``, builds its kernels
 and times them at B=4096 on the cases of this checkout's ``chip_smoke.py``
-(K1 on its three grids, cold and, where the checkout's K1 has a warm
-form, warm; K2 on its four settings, K3 on both tasks for ``fused`` and
-``fused_hybrid``), through the public wrappers, with
+(K1 on its three grids and K2 on its four settings, each cold and, where
+the checkout's kernel has a warm form, warm; K3 on both tasks for
+``fused`` and ``fused_hybrid``), through the public wrappers, with
 ``chip_smoke.event_ms``: the replay of a CUDA graph of 20 launches (``ms``,
 as ``chip_smoke.py`` reports) and 20 eager calls (``eager_ms``, the host's
 issue time included), each per launch.  Give the roots as A B B A to see
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -52,11 +53,11 @@ def cases(cs):
         kw = dict(x_tol=x_tol, max_iter=cs.TREE_MAX_ITER, **({} if warm is None else {"init": warm}))
         yield {"kernel": "tree_nr", "grid": name, "warm": warm is not None}, (
             lambda ds=ds, pT=pT, qT=qT, kw=kw: tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, **kw))
-    for name, amp, chord, pivot, max_iter in cs.NR_CASES:
-        g = cs.make_grid(name)
-        p, q = cs.make_injections(g.spec.n_bus - 1, amp)
+    nr_warm = "init" in inspect.signature(nr_cuda.solve_pfe_nr_cuda).parameters
+    for name, _, chord, pivot, max_iter, g, p, q, warm in cs.nr_cases(warm=nr_warm):
         kw = dict(x_tol=1e-5, max_iter=max_iter, chord_iters=chord, pivot=pivot)
-        yield {"kernel": "nr_dense", "grid": name, "chord_iters": chord, "pivot": pivot}, (
+        kw.update({} if warm is None else {"init": warm})
+        yield {"kernel": "nr_dense", "grid": name, "chord_iters": chord, "pivot": pivot, "warm": warm is not None}, (
             lambda g=g, p=p, q=q, kw=kw: nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, q, **kw))
     for env in cs.STEP_ENVS:
         for method in ("fused", "fused_hybrid"):

@@ -8,8 +8,8 @@ has only PyTorch:
 * each kernel (tree NR, dense NR, the fused transition) against its plain
   PyTorch twin on the card, bit for bit at B in {1, 37, 1000}, so that
   teams and blocks are left partly filled; K1 on its three grids, cold and
-  warm, with NaN and never-converging lanes; K2 with pivoting
-  on NaN, infinite and diverging lanes and on systems whose pivot searches
+  warm, with NaN and never-converging lanes; K2 cold and warm, and with
+  pivoting on NaN, infinite and diverging lanes and on systems whose pivot searches
   meet ties and NaN columns, and K3 on a projection whose two nearest
   candidates tie;
 * the wrappers refuse float64 and non-contiguous inputs, the dense kernels
@@ -17,7 +17,7 @@ has only PyTorch:
   a block's shared memory raises;
 * the ANM6Easy env core on the GPU (kernel) against the same core on the
   CPU (plain version), from the same initial states and actions, for the
-  tree (cold and warm-started), pallas and fused paths.
+  tree and pallas paths (each cold and warm-started) and the fused path.
 """
 
 import dataclasses
@@ -34,6 +34,7 @@ from gym_anm_tpu_torch.envs.batched import BatchedEnv
 from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
 from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network, make_multi_feeder_network
 from gym_anm_tpu_torch.ops import nr_cuda, step_cuda, tree_cuda
+from gym_anm_tpu_torch.ops.power_flow import warm_init_theta_vm
 from gym_anm_tpu_torch.ops.tree_cuda import DeviceSchedule
 
 
@@ -131,6 +132,8 @@ def _dense_grid(name):
 
 
 def _nr_both(g, p, q, **kw):
+    """The dense-NR kernel and its plain twin bit for bit; the kernel's
+    mismatch."""
     before = nr_cuda.KERNEL_LAUNCHES
     vr, vi, d, it = nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, q, **kw)
     torch.cuda.synchronize()
@@ -154,6 +157,36 @@ def test_cuda_nr_kernel_matches_plain(name, amp, chord, pivot, B):
     q = torch.tensor(rng.uniform(-0.6 * amp, 0.6 * amp, (m, B)).astype(np.float32), device="cuda")
     d = _nr_both(g, p, q, x_tol=1e-5, max_iter=15, chord_iters=chord, pivot=pivot)
     assert float((d <= 1e-5).float().mean()) > 0.9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 1000])
+@pytest.mark.parametrize("chord, pivot", [(0, False), (16, True)])
+@pytest.mark.parametrize("name, amp", [("anm6", 0.3), ("feeder33", 0.05)])
+def test_cuda_nr_kernel_warm_matches_plain(name, amp, chord, pivot, B):
+    """The warm form bit for bit: the warm point is the solved V of a
+    nearby problem (0.9x the injections), a few lanes zeroed so that they
+    flat-start, beside a NaN lane and a lane that never converges."""
+    _need_cuda()
+    g = _dense_grid(name)
+    rng = np.random.default_rng(3)
+    m = g.spec.n_bus - 1
+    p = torch.tensor(rng.uniform(-amp, amp, (m, B)).astype(np.float32), device="cuda")
+    q = torch.tensor(rng.uniform(-0.6 * amp, 0.6 * amp, (m, B)).astype(np.float32), device="cuda")
+    kw = dict(x_tol=1e-5, max_iter=15, chord_iters=chord, pivot=pivot)
+    vr, vi = nr_cuda.nr_core_plain(g.Y_re, g.Y_im, g.J0inv, 0.9 * p, 0.9 * q, **kw)[:2]
+    th, vm, _ = warm_init_theta_vm(vr.T, vi.T, m, torch.float32)
+    if B > 5:
+        p[0, 0] = float("nan")
+        p[:, 1] *= 1e3
+        th[:, 2:5], vm[:, 2:5] = 0.0, 1.0
+    d = _nr_both(g, p, q, **kw, init=(th.contiguous(), vm.contiguous()))
+    conv = d <= 1e-5
+    if B > 5:
+        assert torch.isnan(d[0]) and not bool(conv[:2].any())
+        assert float(conv[2:].float().mean()) > 0.9
+    else:
+        assert bool(conv.all())
 
 
 @pytest.mark.gpu
@@ -286,6 +319,10 @@ def test_cuda_dense_kernels_refuse_what_they_do_not_take():
         nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p.T.contiguous().T, p)
     with pytest.raises(TypeError):  # the dispatcher has no float64 GPU path
         nr_cuda.solve_pfe_nr(g.Y_re.double(), g.Y_im.double(), g.J0inv.double(), p.T.double(), p.T.double())
+    with pytest.raises(TypeError):
+        nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, p, init=(p.double(), p.double()))
+    with pytest.raises(ValueError, match="shape"):
+        nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, p, init=(p[:, :8].contiguous(), p[:, :8].contiguous()))
     spec141, _ = build_grid(make_multi_feeder_network(), 0.25, 100, dtype=np.float32)
     g141 = GridTensors.from_spec(spec141, "cuda", torch.float32)
     p141 = torch.zeros((140, 64), device="cuda")
@@ -324,8 +361,8 @@ def test_cuda_dense_kernels_refuse_what_they_do_not_take():
     # apart).
     "pf_method, warm_start, counter, atol",
     [("tree", False, tree_cuda, 1e-3), ("tree", True, tree_cuda, 5e-3), ("pallas", False, nr_cuda, 5e-3),
-     ("fused", False, step_cuda, 5e-3)],
-    ids=["tree", "tree-warm", "pallas", "fused"],
+     ("fused", False, step_cuda, 5e-3), ("pallas", True, nr_cuda, 5e-3)],
+    ids=["tree", "tree-warm", "pallas", "fused", "pallas-warm"],
 )
 def test_cuda_env_core_matches_cpu(pf_method, warm_start, counter, atol):
     _need_cuda()

@@ -3,8 +3,8 @@
 ``gym_anm_tpu_torch.ops.power_flow.solve_pfe`` (scan / while / hybrid)
 against ``gym_anm_tpu.ops.power_flow.solve_pfe`` in float64 on the ANM6 and
 feeder33 grids, from injections made with numpy: identical iteration counts
-and convergence flags, V to 1e-9.  Also the host builder
-``flat_start_jacobian_inv_np`` (a copy)."""
+and convergence flags, V to 1e-9; warm-started (``init=``) on ANM6 too.
+Also the host builder ``flat_start_jacobian_inv_np`` (a copy)."""
 
 import functools
 
@@ -50,6 +50,8 @@ def _case(name, B, seed):
 
 METHODS = ("scan", "while", "hybrid")
 KW = dict(x_tol=1e-9, max_iter=8, chord_iters=6)
+# The methods held warm-started against the JAX package, on ANM6.
+WARM_METHODS = ("scan", "hybrid")
 
 
 def _case_f64(name):
@@ -60,12 +62,34 @@ def _case_f64(name):
 
 
 @functools.lru_cache(maxsize=None)
+def _warm_voltages(name):
+    """Raw warm voltages ``[B, n]`` for the float64 case: the solution of
+    the problem scaled by 0.9, with lanes 3-5 zeroed and lane 6 NaN, so
+    that they flat-start."""
+    spec, _, p, q = _case_f64(name)
+    Y = lambda a: torch.tensor(np.asarray(a))
+    vr, vi = solve_pfe(Y(spec.Y_re), Y(spec.Y_im), torch.tensor(0.9 * p), torch.tensor(0.9 * q), **KW)[:2]
+    vr, vi = vr.numpy().copy(), vi.numpy().copy()
+    vr[3:6] = 0.0
+    vi[6] = np.nan
+    return vr, vi
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_solves(name):
-    """The JAX package's solves of every method on one grid, compiled as one
+    """The JAX package's solves of every method on one grid (and, on ANM6,
+    the warm-started ones, keyed ``method + "-warm"``), compiled as one
     program (one compile instead of one a method)."""
     _, jspec, p, q = _case_f64(name)
-    run = jax.jit(lambda Yr, Yi, p, q: {m: jax_solve_pfe(Yr, Yi, p, q, method=m, **KW) for m in METHODS})
-    return {m: [np.asarray(x) for x in v] for m, v in run(jspec.Y_re, jspec.Y_im, p, q).items()}
+    warm = WARM_METHODS if name == "anm6" else ()
+
+    def run(Yr, Yi, p, q, v0):
+        out = {m: jax_solve_pfe(Yr, Yi, p, q, method=m, **KW) for m in METHODS}
+        out.update({m + "-warm": jax_solve_pfe(Yr, Yi, p, q, method=m, **KW, init=v0) for m in warm})
+        return out
+
+    v0 = _warm_voltages(name) if warm else None
+    return {m: [np.asarray(x) for x in v] for m, v in jax.jit(run)(jspec.Y_re, jspec.Y_im, p, q, v0).items()}
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -82,6 +106,25 @@ def test_solve_pfe_matches_jax_f64(name, method):
     np.testing.assert_array_equal(v[3].numpy(), np.asarray(jv[3]))
     np.testing.assert_allclose(v[0].numpy()[conv], np.asarray(jv[0])[conv], rtol=0, atol=1e-9)
     np.testing.assert_allclose(v[1].numpy()[conv], np.asarray(jv[1])[conv], rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("method", WARM_METHODS)
+def test_solve_pfe_warm_matches_jax_f64(method):
+    """``init=``: each lane starts from the better of {warm point, flat
+    start}; non-finite and out-of-window voltages flat-start."""
+    spec, _, p, q = _case_f64("anm6")
+    jv = _jax_solves("anm6")[method + "-warm"]
+    Y = lambda a: torch.tensor(np.asarray(a))
+    init = tuple(torch.tensor(a) for a in _warm_voltages("anm6"))
+    v = solve_pfe(Y(spec.Y_re), Y(spec.Y_im), torch.tensor(p), torch.tensor(q), method=method, **KW, init=init)
+    conv = np.asarray(jv[4])
+    assert 0.5 < conv.mean() < 1.0
+    np.testing.assert_array_equal(v[4].numpy(), conv)
+    np.testing.assert_array_equal(v[3].numpy(), np.asarray(jv[3]))
+    np.testing.assert_allclose(v[0].numpy()[conv], np.asarray(jv[0])[conv], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(v[1].numpy()[conv], np.asarray(jv[1])[conv], rtol=0, atol=1e-9)
+    cold = np.asarray(_jax_solves("anm6")[method][3])
+    assert v[3].numpy()[7:].mean() < cold[7:].mean()
 
 
 def test_solve_pfe_chord_only():
