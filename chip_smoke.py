@@ -45,7 +45,18 @@ the port's paths on the card, one JSON line per phase:
 6. train: ``PPOTrainer`` (3 iterations) and ``SACTrainer`` (2 warm-up
    rounds and 3 iterations) with their default configurations over
    ANM6Easy at B=4096 (the tree path, pool auto-reset): each iteration's
-   metrics and seconds; a non-finite loss or parameter fails.
+   metrics and seconds; a non-finite loss or parameter fails;
+7. fleet: domain-randomized fleets (``envs/randomized.py``) of G grid
+   variants x L lanes at G x L = 4096, uniform random actions: ANM6Easy
+   (G=4, tree; one reset and two 16-step rollouts), feeder33 with
+   auto-reset (G=2, tree; two 8-step rollouts, no lane left terminated)
+   and feeder33 on the fused path (G=2; two 8-step rollouts); each line
+   with its env-steps/s (``profiling.StepRateCounter``, median of
+   segments), launches, each variant's mean reward (each its own) and
+   seconds; then ``ppo_trainer_for_fleet`` (1 iteration) and
+   ``sac_trainer_for_fleet`` (1 warm-up round and 1 iteration) over the
+   ANM6Easy fleet's cores at L=1024 with their default configurations.
+   The path's kernel must have run once per variant per step.
 
 Every launch count is set to 0 just before a path runs and read just
 after, and the path's kernel must have run once per step.
@@ -88,6 +99,16 @@ WARM_REPLAYS = (("anm6easy", "pallas"), ("feeder33", "hybrid"))
 TRAIN_B = 4096
 PPO_ITERS = 3
 SAC_WARMUP, SAC_ITERS = 2, 3
+# Domain-randomized fleets at G x L = 4096: (env, G, L, pf_method,
+# auto-reset, steps a rollout, rollouts, branch jitter).  The second is the
+# shape of the JAX package's multi-chip fleet collect.
+FLEET_CASES = (
+    ("anm6easy", 4, 1024, "tree", False, 16, 2, 0.2),
+    ("feeder33", 2, 2048, "tree", True, 8, 2, 0.1),
+    ("feeder33", 2, 2048, "fused", False, 8, 2, 0.1),
+)
+# The fleet trainers: ANM6Easy's fleet of FLEET_CASES[0] at this L.
+FLEET_TRAIN_L = 1024
 KERNEL_B = 4096
 # Grids of the tree-kernel check: (name, injection amplitude, x_tol);
 # feeder141 keeps the float32 mismatch-plateau tolerance of its task.
@@ -580,6 +601,107 @@ def phase_train():
     return ppo_counts[kernel]
 
 
+def fleet_cores(env_name, G, sigma, pf_method="tree"):
+    from gym_anm_tpu_torch.envs.randomized import randomized_anm6easy_cores, randomized_feeder33_cores
+
+    builder = {"anm6easy": randomized_anm6easy_cores, "feeder33": randomized_feeder33_cores}[env_name]
+    return builder(G, seed=0, r_sigma=sigma, x_sigma=sigma, dtype=torch.float32, device="cuda", pf_method=pf_method)
+
+
+def phase_fleet(env_name, G, L, pf_method, auto_reset, T, rollouts, sigma):
+    from gym_anm_tpu_torch.envs.randomized import MultiBatchedEnv
+    from gym_anm_tpu_torch.profiling import StepRateCounter
+
+    cores = fleet_cores(env_name, G, sigma, pf_method)
+    kernel = path_kernel(cores[0])
+    fleet = MultiBatchedEnv(cores, L, auto_reset=auto_reset)
+    counter = StepRateCounter(device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    states, first = fleet.reset()
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    rewards, terms = [], []
+    for _ in range(rollouts):
+        with counter.measure(G * L * T):
+            states, (reward, terminated) = fleet.rollout(states, T)
+        rewards.append(reward)
+        terms.append(terminated)
+        if auto_reset and any(bool(es.terminated.any()) for es in states):
+            raise AssertionError("the %s fleet's auto-reset left lanes terminated" % env_name)
+    counts = read_counts()
+
+    reward, terminated = torch.cat(rewards), torch.cat(terms)
+    what = "%s %s fleet" % (env_name, pf_method)
+    if reward.shape != (rollouts * T, G, L) or not bool(torch.isfinite(reward).all()):
+        raise AssertionError("%s rewards are not finite [T, G, L]" % what)
+    obs = fleet.observation(states)
+    if obs.shape != (G, L, fleet.obs_n) or not bool(torch.isfinite(obs).all()):
+        raise AssertionError("%s observations are not finite [G, L, obs_n]" % what)
+    if bool(first.terminated.any()):
+        raise AssertionError("%s reset left %d lanes terminated" % (what, int(first.terminated.sum())))
+    variant_means = reward.mean(dim=(0, 2)).tolist()
+    if len(set(variant_means)) < G:
+        raise AssertionError("%s: variants of different grids share a mean reward: %s" % (what, variant_means))
+    if counts[kernel] < G * (1 + rollouts * T):
+        raise AssertionError("%s launched %s %d times, expected >= %d"
+                             % (what, kernel, counts[kernel], G * (1 + rollouts * T)))
+    emit({
+        "phase": "fleet", "env": env_name, "pf_method": pf_method, "G": G, "L": L, "B": G * L, "T": T,
+        "rollouts": rollouts, "sigma": sigma, "auto_reset": auto_reset, "reset_s": reset_s,
+        "seconds": counter.total_seconds, "env_steps_per_s": counter.median_rate(), "counter": counter.summary(),
+        "variant_mean_reward": variant_means,
+        "terminated_frac": float(terminated.float().mean()), "kernel": kernel, "launches": counts,
+    })
+
+
+def phase_fleet_train():
+    """``ppo_trainer_for_fleet`` (1 iteration) and ``sac_trainer_for_fleet``
+    (1 warm-up round and 1 iteration) over the first fleet's cores."""
+    from gym_anm_tpu_torch.envs.randomized import ppo_trainer_for_fleet, sac_trainer_for_fleet
+
+    env_name, G, _, _, _, _, _, sigma = FLEET_CASES[0]
+    cores = fleet_cores(env_name, G, sigma)
+    kernel = path_kernel(cores[0])
+    B = G * FLEET_TRAIN_L
+
+    ppo = ppo_trainer_for_fleet(cores, FLEET_TRAIN_L, seed=0)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    es = ppo.init_envs()
+    es, metrics = ppo.train_step(es)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check_finite("fleet ppo", metrics, [ppo.model])
+    # A reset, a pool and the rollout's steps, each once per variant.
+    need = G * (2 + ppo.cfg.rollout_steps)
+    if counts[kernel] < need:
+        raise AssertionError("the fleet PPO run launched %s %d times, expected >= %d" % (kernel, counts[kernel], need))
+    emit({"phase": "fleet_train", "trainer": "ppo", "env": env_name, "G": G, "L": FLEET_TRAIN_L, "B": B,
+          "iterations": 1, "seconds": seconds, "env_steps": ppo.cfg.rollout_steps * B, "launches": counts, **metrics})
+
+    sac = sac_trainer_for_fleet(cores, FLEET_TRAIN_L, seed=0)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    es, rb, obs = sac.init_envs()
+    es, rb, obs = sac.warmup(es, rb, obs)
+    es, rb, obs, metrics = sac.train_step(es, rb, obs)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check_finite("fleet sac", metrics, [sac.actor, sac.critic, sac.target])
+    need = G * (1 + 2 * (1 + sac.cfg.collect_steps))
+    if counts[kernel] < need:
+        raise AssertionError("the fleet SAC run launched %s %d times, expected >= %d" % (kernel, counts[kernel], need))
+    emit({"phase": "fleet_train", "trainer": "sac", "env": env_name, "G": G, "L": FLEET_TRAIN_L, "B": B,
+          "warmup_rounds": 1, "iterations": 1, "seconds": seconds, "env_steps": 2 * sac.cfg.collect_steps * B,
+          "replay_size": rb.size, "launches": counts, **metrics})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -601,6 +723,9 @@ def main() -> int:
             if case[0] == "anm6easy" and len(case) <= 5:
                 launches.setdefault((kernel, len(case) == 5 and case[4]), n)
         launches["tree_nr", False] = phase_train()
+        for case in FLEET_CASES:
+            phase_fleet(*case)
+        phase_fleet_train()
     except Exception:
         traceback.print_exc()
         return 1

@@ -15,5 +15,8 @@ Main path: :func:`gym_anm_tpu_torch.envs.anm6.anm6_easy.make_core` ->
 ``ops.step_cuda.fused_transition`` (``"fused"``, ``"fused_hybrid"``).
 Training: :mod:`gym_anm_tpu_torch.rl` (PPO, SAC) over ``BatchedEnv`` with
 auto-reset; :mod:`gym_anm_tpu_torch.checkpoint` saves and restores state
-trees.
+trees.  Domain randomization: :mod:`gym_anm_tpu_torch.envs.randomized`
+(G perturbed grid variants x L lanes, ``MultiBatchedEnv``, and the fleet
+trainers); step rates and profiler traces:
+:mod:`gym_anm_tpu_torch.profiling`.
 """

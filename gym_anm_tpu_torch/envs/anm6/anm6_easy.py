@@ -61,7 +61,7 @@ def _get_gen_time_series():
 
 def make_core(
     dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", chord_iters=16, nr_pivot=False,
-    warm_start=False,
+    warm_start=False, network=None,
 ):
     """Build the ANM6Easy :class:`~gym_anm_tpu_torch.core.env_core.EnvCore`
     computing on ``device`` (the card unless the caller passes ``"cpu"``) in
@@ -74,12 +74,17 @@ def make_core(
     every method (every converging solve finishes in <= 8 iterations; its
     parity check runs ``"hybrid"`` with 6, see ``check.CHECK_CONFIG``).
     ``warm_start`` warm-starts each step's solve from the previous step's
-    voltages (every method but the fused ones, off by default)."""
+    voltages (every method but the fused ones, off by default).
+    ``network`` replaces the canonical 6-bus dict (the same topology and
+    device layout), as the domain-randomized fleets of
+    :mod:`gym_anm_tpu_torch.envs.randomized` do."""
     from ...core.env_core import EnvCore
     from ...core.grid import build_grid
     from ...core.obs import state_values_spec
-    from .network import network
+    from .network import network as canonical
 
+    if network is None:
+        network = canonical
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     spec, _ = build_grid(network, delta_t=0.25, lamb=100, dtype=np_dtype)
     device = torch.device(device)

@@ -4,7 +4,7 @@ CUDA device, under ``torch.profiler``; or of one training iteration.
 
     python3 scripts/profile_torch_rollout.py [--env anm6easy] [--pf tree] [--warm-start] [--batch 4096]
                                              [--steps 8] [--auto-reset {pool,step}] [--train {ppo,sac}]
-                                             [--seed 0] [--trace PATH]
+                                             [--fleet G] [--seed 0] [--trace PATH]
 
 Warms up (build, reset, a few steps), then times ``--steps`` steps untraced
 (host clock around work that ends in a synchronize) and profiles the same
@@ -19,8 +19,11 @@ durations on the one stream) and its share of the traced time, the
 launches and device time per launch of the kernel of the ``--pf`` solver
 path (tree: the tree-NR kernel, pallas and hybrid: the dense-NR kernel,
 fused and fused_hybrid: the whole-transition kernel), and the top kernels
-by device time.  ``--trace PATH`` also writes the Chrome trace of the
-profiled unit.
+by device time.  ``--fleet G`` (anm6easy, feeder33) also profiles a step of
+a domain-randomized fleet of G grid variants x ``--batch / G`` lanes
+(``envs/randomized.py``, branch jitter 0.2) and prints its numbers under
+``"fleet"``, next to the plain step's.  ``--trace PATH`` also writes the
+Chrome trace of the profiled unit (with ``--fleet``, the fleet's).
 """
 
 from __future__ import annotations
@@ -37,6 +40,56 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def profile_unit(run, units, counter, kname, trace=None) -> dict:
+    """Warm ``run`` up, time it untraced, then profile it: ``run`` executes
+    ``units`` units (steps or iterations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / units
+
+    launches0 = counter.KERNEL_LAUNCHES if counter else 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / units
+    launches = (counter.KERNEL_LAUNCHES if counter else 0) - launches0
+
+    # Device events, without the ranges user annotations (such as
+    # ``Optimizer.step``) mark on the device: those span kernels counted here.
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    ]
+    busy_us = sum(e.device_time_total for e in kernels)
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time_total)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    kernel_us = sum(t for name, (n, t) in by_name.items() if kname and kname + "_kernel" in name)
+    if trace:
+        os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+        prof.export_chrome_trace(trace)
+    return {
+        "untraced_ms_per_unit": untraced_ms, "traced_ms_per_unit": traced_ms,
+        "cuda_events_per_unit": len(kernels) / units,
+        "device_busy_ms_per_unit": busy_us / 1e3 / units,
+        "device_busy_share": busy_us / 1e3 / (traced_ms * units),
+        "kernel": kname, "kernel_launches": launches,
+        "kernel_ms_per_launch": kernel_us / 1e3 / max(launches, 1),
+        "top_kernels": [
+            {"name": name[:80], "count": n, "device_ms": t / 1e3} for name, (n, t) in top
+        ],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--env", default="anm6easy", choices=("anm6easy", "feeder33", "feeder141"))
@@ -46,14 +99,15 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--auto-reset", choices=("pool", "step"), default=None, help="rebirth terminated lanes")
     ap.add_argument("--train", choices=("ppo", "sac"), default=None, help="profile a training iteration")
+    ap.add_argument("--fleet", type=int, default=0, metavar="G", help="also profile a fleet of G grid variants")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
     args = ap.parse_args()
+    if args.fleet and (args.train or args.auto_reset or args.env == "feeder141"):
+        ap.error("--fleet profiles rollouts of anm6easy or feeder33 without --train or --auto-reset")
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     from gym_anm_tpu_torch import check
     from gym_anm_tpu_torch.core.transition import resolve_solver_path
     from gym_anm_tpu_torch.envs.batched import BatchedEnv
@@ -92,51 +146,25 @@ def main() -> int:
         state[0] = env.rollout(state[0], 4)[0]
         run = lambda: state.__setitem__(0, env.rollout(state[0], args.steps)[0])
         units = args.steps
-    run()  # warm-up
-    torch.cuda.synchronize()
+    out = profile_unit(run, units, counter, kname, args.trace if not args.fleet else None)
+    if args.fleet:
+        from gym_anm_tpu_torch.envs import randomized
 
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    untraced_ms = (time.perf_counter() - t0) * 1e3 / units
-
-    launches0 = counter.KERNEL_LAUNCHES if counter else 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / units
-    launches = (counter.KERNEL_LAUNCHES if counter else 0) - launches0
-
-    # Device events, without the ranges user annotations (such as
-    # ``Optimizer.step``) mark on the device: those span kernels counted here.
-    kernels = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-    ]
-    busy_us = sum(e.device_time_total for e in kernels)
-    by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.device_time_total)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    kernel_us = sum(t for name, (n, t) in by_name.items() if kname and kname + "_kernel" in name)
-    if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        prof.export_chrome_trace(args.trace)
+        builder = {"anm6easy": randomized.randomized_anm6easy_cores,
+                   "feeder33": randomized.randomized_feeder33_cores}[args.env]
+        cores = builder(args.fleet, seed=args.seed, r_sigma=0.2, x_sigma=0.2, dtype=torch.float32, device="cuda",
+                        pf_method=args.pf, warm_start=args.warm_start)
+        fleet = randomized.MultiBatchedEnv(cores, args.batch // args.fleet, generator=gen)
+        fstate = [fleet.reset()[0]]
+        fstate[0] = fleet.rollout(fstate[0], 4)[0]
+        frun = lambda: fstate.__setitem__(0, fleet.rollout(fstate[0], args.steps)[0])
+        fleet_out = {"G": fleet.G, "L": fleet.L, **profile_unit(frun, units, counter, kname, args.trace)}
     unit = "iteration" if args.train else "step"
+    named = lambda d: {k.replace("_unit", "_" + unit): v for k, v in d.items()}
     print(json.dumps({
         "card": smi, "env": args.env, "pf_method": args.pf, "warm_start": args.warm_start, "B": args.batch,
         "auto_reset": args.auto_reset, "train": args.train, "units": units, "unit": unit,
-        "untraced_ms_per_" + unit: untraced_ms, "traced_ms_per_" + unit: traced_ms,
-        "cuda_events_per_" + unit: len(kernels) / units,
-        "device_busy_ms_per_" + unit: busy_us / 1e3 / units,
-        "device_busy_share": busy_us / 1e3 / (traced_ms * units),
-        "kernel": kname, "kernel_launches": launches,
-        "kernel_ms_per_launch": kernel_us / 1e3 / max(launches, 1),
-        "top_kernels": [
-            {"name": name[:80], "count": n, "device_ms": t / 1e3} for name, (n, t) in top
-        ],
+        **named(out), **({"fleet": named(fleet_out)} if args.fleet else {}),
     }))
     return 0
 

@@ -17,7 +17,13 @@ has only PyTorch:
   a block's shared memory raises;
 * the ANM6Easy env core on the GPU (kernel) against the same core on the
   CPU (plain version), from the same initial states and actions, for the
-  tree and pallas paths (each cold and warm-started) and the fused path.
+  tree and pallas paths (each cold and warm-started) and the fused path;
+* a domain-randomized fleet on the GPU against the same fleet on the CPU,
+  per variant (ANM6Easy on the tree path, feeder33 on the fused path, the
+  latter given the same internal variables), launching its path's kernel
+  once per variant per step;
+* ``StepRateCounter.measure`` on the card counts the device work its block
+  queued.
 """
 
 import dataclasses
@@ -33,9 +39,11 @@ from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
 from gym_anm_tpu_torch.envs.batched import BatchedEnv
 from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
 from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network, make_multi_feeder_network
+from gym_anm_tpu_torch.envs.randomized import MultiBatchedEnv, randomized_anm6easy_cores, randomized_feeder33_cores
 from gym_anm_tpu_torch.ops import nr_cuda, step_cuda, tree_cuda
 from gym_anm_tpu_torch.ops.power_flow import warm_init_theta_vm
 from gym_anm_tpu_torch.ops.tree_cuda import DeviceSchedule
+from gym_anm_tpu_torch.profiling import StepRateCounter
 
 
 def _need_cuda():
@@ -383,3 +391,64 @@ def test_cuda_env_core_matches_cpu(pf_method, warm_start, counter, atol):
         torch.testing.assert_close(out_g.state_vec.cpu()[live], out_c.state_vec[live], rtol=1e-4, atol=atol)
         torch.testing.assert_close(out_g.reward.cpu()[live], out_c.reward[live], rtol=1e-4, atol=atol)
     assert counter.KERNEL_LAUNCHES == before + 1 + T
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "builder, pf_method, L, counter",
+    [(randomized_anm6easy_cores, "tree", 37, tree_cuda), (randomized_feeder33_cores, "fused", 64, step_cuda)],
+    ids=["anm6easy-tree", "feeder33-fused"],
+)
+def test_cuda_fleet_matches_cpu(builder, pf_method, L, counter):
+    """Each variant's lanes on the card agree with the same variant's on the
+    CPU within the env-core bound (5e-3), given the same initial states,
+    actions and internal variables (drawn on the CPU)."""
+    _need_cuda()
+    G, T = 2, 4
+    kw = dict(seed=0, r_sigma=0.2, x_sigma=0.2, dtype=torch.float32, pf_method=pf_method)
+    gpu = MultiBatchedEnv(builder(G, device="cuda", **kw), L)
+    cpu = MultiBatchedEnv(builder(G, device="cpu", **kw), L)
+    gen = torch.Generator().manual_seed(0)
+    s0 = [c.init_state_fn(gen, L) for c in cpu.cores]
+    rng = np.random.default_rng(0)
+    actions = rng.uniform(cpu.cores[0].action_low, cpu.cores[0].action_high, (T, G, L, cpu.action_n))
+    next_vars = [c.next_vars_fn for c in cpu.cores]
+    before = counter.KERNEL_LAUNCHES
+    es_g = tuple(c.env_state_from_s0(s.cuda()) for c, s in zip(gpu.cores, s0))
+    es_c = tuple(c.env_state_from_s0(s) for c, s in zip(cpu.cores, s0))
+    for t in range(T):
+        for g in range(G):
+            v = next_vars[g](es_c[g].state_vec, gen)
+            cpu.cores[g].next_vars_fn = lambda s, generator, v=v: v
+            gpu.cores[g].next_vars_fn = lambda s, generator, v=v.cuda(): v
+        a = torch.tensor(actions[t], dtype=torch.float32)
+        es_g, out_g = gpu.step(es_g, a.cuda())
+        es_c, out_c = cpu.step(es_c, a)
+        for g in range(G):
+            agree = out_g.terminated[g].cpu() == out_c.terminated[g]
+            assert float(agree.float().mean()) >= 0.95
+            live = agree & ~out_c.terminated[g]
+            torch.testing.assert_close(out_g.state_vec[g].cpu()[live], out_c.state_vec[g][live], rtol=1e-4, atol=5e-3)
+            torch.testing.assert_close(out_g.reward[g].cpu()[live], out_c.reward[g][live], rtol=1e-4, atol=5e-3)
+    assert counter.KERNEL_LAUNCHES == before + G * (1 + T)
+    # The variants' grids differ, and so do their outputs.
+    assert not torch.equal(out_g.state_vec[0], out_g.state_vec[1])
+
+
+@pytest.mark.gpu
+def test_cuda_step_rate_counter_waits_for_the_device():
+    """A block that only queues a spinning kernel is timed to the kernel's
+    end: ``measure`` synchronizes the card before it reads the clock."""
+    _need_cuda()
+    cycles = 200_000_000
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    kernel_s = start.elapsed_time(end) / 1e3
+    counter = StepRateCounter(device="cuda")
+    with counter.measure(1):
+        torch.cuda._sleep(cycles)
+    assert counter.total_seconds >= 0.8 * kernel_s > 0.01

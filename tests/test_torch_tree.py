@@ -31,6 +31,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gym_anm_tpu.core.grid import build_grid as jax_build_grid
 from gym_anm_tpu.envs.anm6.network import network as jax_anm6_network
 from gym_anm_tpu.envs.feeder33 import _NETWORK as JAX_F33
+from gym_anm_tpu.envs.feeder141 import _NETWORK as JAX_F141
 from gym_anm_tpu.ops.pallas_tree import build_tree_schedule as jax_build_tree_schedule, solve_pfe_tree_pallas
 from gym_anm_tpu.ops.power_flow import warm_init_theta_vm as jax_warm_init_theta_vm
 from gym_anm_tpu.ops.tree_nr import build_tree_info as jax_build_tree_info, solve_pfe_tree as jax_solve_pfe_tree
@@ -45,6 +46,7 @@ from gym_anm_tpu_torch.ops.tree_cuda import DeviceSchedule, gather_tables, solve
 GRIDS = {
     "anm6": (anm6_network, jax_anm6_network, 0.3),
     "feeder33": (make_feeder_network(), JAX_F33, 0.05),
+    "feeder141": (make_multi_feeder_network(), JAX_F141, 0.02),
 }
 
 
@@ -88,7 +90,7 @@ def _f64_case(name):
 
 
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
-@pytest.mark.parametrize("name", ["anm6", "feeder33"])
+@pytest.mark.parametrize("name", ["anm6", "feeder33", "feeder141"])
 def test_plain_f64_matches_xla_tree(name, warm):
     spec, p, q, init, jax_out = _f64_case(name)
     jv = jax_out[warm]
