@@ -56,7 +56,21 @@ the port's paths on the card, one JSON line per phase:
    seconds; then ``ppo_trainer_for_fleet`` (1 iteration) and
    ``sac_trainer_for_fleet`` (1 warm-up round and 1 iteration) over the
    ANM6Easy fleet's cores at L=1024 with their default configurations.
-   The path's kernel must have run once per variant per step.
+   The path's kernel must have run once per variant per step;
+8. mpc: the MPC DC-OPF agents (``agents/``, built from the ``simulator``
+   facade) closing the loop through the tree-NR kernel: ANM6Easy at
+   B=4096 with the dense constant-forecast agent (h3, float32; a cold and
+   a warm ``act_batch``, then an 8-step closed loop of warm solves on a
+   ``tree`` ``BatchedEnv``: terminated fraction <= 1% and mean reward > -5,
+   the bar of ``tests/test_mpc.py``) and the banded perfect-forecast agent
+   with the daily tables (h10; a cold solve, then a 4-step closed loop with
+   the stage-shifted warm start); feeder141 at B=64 with the banded
+   constant-forecast agent (h5, ``polish=True``; 4 lanes checked against
+   the HiGHS LP optimum: gap and bound violation <= 1e-6), the agent's
+   polish replaying ``tests/data/polish_calib_feeder141.npz`` (gap <= 1e-8,
+   violation <= 1e-9) and a 2-step closed loop of cold solves.  The ADMM
+   runs in float32.  Each row gives its solve seconds and the tree kernel's
+   launches over its loop (>= one a step); every value must be finite.
 
 Every launch count is set to 0 just before a path runs and read just
 after, and the path's kernel must have run once per step.
@@ -109,6 +123,20 @@ FLEET_CASES = (
 )
 # The fleet trainers: ANM6Easy's fleet of FLEET_CASES[0] at this L.
 FLEET_TRAIN_L = 1024
+# The MPC phase: (env, agent, horizon, B, closed-loop steps, act_batch
+# options of the loop's solves, polish, HiGHS lanes).
+MPC_CASES = (
+    ("anm6easy", "MPCAgentConstant", 3, 4096, 8, dict(warm_start=True), False, 0),
+    ("anm6easy", "MPCAgentPerfectBanded", 10, 4096, 4, dict(warm_start=True, warm_shift=True), False, 0),
+    ("feeder141", "MPCAgentConstantBanded", 5, 64, 2, dict(), True, 4),
+)
+# Gates: the ANM6Easy dense loop's (tests/test_mpc.py:153-156), the polished
+# lanes' HiGHS gap (tests/test_mpc_banded.py:291) and bound violation (the
+# polish's feasibility test, agents/mpc.py), the calibration replay's
+# (tests/test_mpc_banded.py:328-329).
+MPC_TERM_FRAC, MPC_MEAN_REWARD = 0.01, -5.0
+MPC_GAP, MPC_VIOL = 1e-6, 1e-6
+MPC_CALIB_GAP, MPC_CALIB_VIOL = 1e-8, 1e-9
 KERNEL_B = 4096
 # Grids of the tree-kernel check: (name, injection amplitude, x_tol);
 # feeder141 keeps the float32 mismatch-plateau tolerance of its task.
@@ -702,6 +730,103 @@ def phase_fleet_train():
           "replay_size": rb.size, "launches": counts, **metrics})
 
 
+def timed(fn):
+    """``fn()`` and its seconds, the device synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def calibration_replay(agent):
+    """The agent's polish on the committed float32 ADMM seed batch of
+    feeder141 h5: the worst HiGHS gap and bound violation over its lanes."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = np.load(os.path.join(root, "tests", "data", "polish_calib_feeder141.npz"))
+    out, seconds = timed(lambda: agent._polish_batch(
+        data["xs"].astype(np.float64), (None, data["z"], data["y"]), data["lv"], data["uv"]))
+    gaps, viols = [], []
+    for b in range(out.shape[0]):
+        lv, uv, opt = data["lv"][b], data["uv"][b], data["highs_opt"][b]
+        Ax = agent.apply_A_host(out[b])
+        viols.append(float(max(np.max(np.maximum(0, lv - Ax)), np.max(np.maximum(0, Ax - uv)))))
+        gaps.append(float(abs(agent.q @ out[b] - opt) / max(1.0, abs(opt))))
+    return {"calib_lanes": out.shape[0], "calib_max_gap": max(gaps), "calib_max_violation": max(viols),
+            "calib_seconds": seconds}
+
+
+def phase_mpc(env_name, agent_name, N, B, loop_steps, loop_kw, polish, verify):
+    import types
+
+    from gym_anm_tpu_torch import agents, check
+    from gym_anm_tpu_torch.agents.mpc import verify_lanes
+    from gym_anm_tpu_torch.envs.anm6.anm6_easy import _get_gen_time_series, _get_load_time_series
+    from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
+    from gym_anm_tpu_torch.envs.batched import BatchedEnv
+    from gym_anm_tpu_torch.envs.feeder_networks import make_multi_feeder_network
+    from gym_anm_tpu_torch.simulator import Simulator
+
+    core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda", pf_method="tree")
+    kernel = path_kernel(core)
+    network = {"anm6easy": lambda: anm6_network, "feeder141": make_multi_feeder_network}[env_name]()
+    sim = Simulator(network, delta_t=0.25, lamb=100, device="cuda")
+    space = types.SimpleNamespace(low=core.action_low, high=core.action_high)
+    kw = dict(P_loads=_get_load_time_series(), P_maxs=_get_gen_time_series()) if "Perfect" in agent_name else {}
+    agent = getattr(agents, agent_name)(sim, space, core.gamma, planning_steps=N, device="cuda", **kw)
+    env = BatchedEnv(core, B)
+    es, first = env.reset()
+    what = "%s %s h%d" % (env_name, agent_name, N)
+    row = {"phase": "mpc", "env": env_name, "agent": agent_name, "horizon": N, "B": B,
+           "solver_dtype": str(agent.dtype), "M": len(agent.l),
+           "n": agent.nz, "polish": polish}
+
+    # A cold solve (keeping its carry where the loop's solves are warm).
+    acts, row["cold_s"] = timed(lambda: agent.act_batch(first.state_vec, polish=polish, **loop_kw))
+    x = agent.last_batch_solution["x"]
+    row["cold_mean_objective"] = float((x @ torch.as_tensor(agent.q, device=x.device)).mean())
+    if verify:
+        row.update(verify_lanes(agent, verify))
+        if "verify_error" in row:
+            raise AssertionError("%s: %s" % (what, row["verify_error"]))
+        if not (row["verify_max_rel_obj_gap"] <= MPC_GAP and row["verify_max_bound_violation"] <= MPC_VIOL):
+            raise AssertionError("%s: polished lanes off the HiGHS optimum: %s" % (what, row))
+    if polish:
+        row.update(calibration_replay(agent))
+        if not (row["calib_max_gap"] <= MPC_CALIB_GAP and row["calib_max_violation"] <= MPC_CALIB_VIOL):
+            raise AssertionError("%s: calibration replay missed its HiGHS optima: %s" % (what, row))
+
+    # The closed loop: each step through K1 with the last solve's actions,
+    # then the next (warm-started) solve from the step's state vectors.
+    torch.cuda.synchronize()
+    zero_counts()
+    rewards, solve_s = [], []
+    t0 = time.perf_counter()
+    for _ in range(loop_steps):
+        es, out = env.step(es, acts)
+        rewards.append(out.reward)
+        acts, s = timed(lambda: agent.act_batch(out.state_vec, polish=polish, **loop_kw))
+        solve_s.append(s)
+    loop_s = time.perf_counter() - t0
+    counts = read_counts()
+    reward = torch.stack(rewards)
+    row.update({
+        "loop_warm_start": bool(loop_kw.get("warm_start")), "loop_steps": loop_steps, "loop_solve_s": solve_s,
+        "loop_s": loop_s,
+        "mean_reward": float(reward.mean()), "terminated_frac": float(out.terminated.float().mean()),
+        "mean_abs_action_mw": float(acts.abs().mean()), "kernel": kernel, "launches": counts,
+    })
+    emit(row)
+    if not (bool(torch.isfinite(reward).all()) and bool(torch.isfinite(acts).all())
+            and all(np.isfinite(v) for v in row.values() if isinstance(v, float))):
+        raise AssertionError("%s: non-finite values: %s" % (what, row))
+    if counts[kernel] < loop_steps:
+        raise AssertionError("%s: the closed loop launched %s %d times" % (what, kernel, counts[kernel]))
+    if agent_name == "MPCAgentConstant" and not (row["terminated_frac"] <= MPC_TERM_FRAC
+                                                 and row["mean_reward"] > MPC_MEAN_REWARD):
+        raise AssertionError("%s: the closed loop misses the MPC bar: %s" % (what, row))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -726,6 +851,8 @@ def main() -> int:
         for case in FLEET_CASES:
             phase_fleet(*case)
         phase_fleet_train()
+        for case in MPC_CASES:
+            phase_mpc(*case)
     except Exception:
         traceback.print_exc()
         return 1

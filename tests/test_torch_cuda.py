@@ -23,7 +23,10 @@ has only PyTorch:
   latter given the same internal variables), launching its path's kernel
   once per variant per step;
 * ``StepRateCounter.measure`` on the card counts the device work its block
-  queued.
+  queued;
+* the MPC agents' batched float64 solve (dense and banded) on the card
+  against the same solve on the CPU, and a dense agent closing the loop of
+  a B=64 ANM6Easy fleet through the tree kernel.
 """
 
 import dataclasses
@@ -452,3 +455,99 @@ def test_cuda_step_rate_counter_waits_for_the_device():
     with counter.measure(1):
         torch.cuda._sleep(cycles)
     assert counter.total_seconds >= 0.8 * kernel_s > 0.01
+
+
+def _mpc_agent(cls, device, N=3, **kw):
+    from gym_anm_tpu_torch.simulator import Simulator
+
+    core = make_core(torch.float64, "cpu")
+    space = types.SimpleNamespace(low=core.action_low, high=core.action_high)
+    sim = Simulator(anm6_network, 0.25, 100, device=device)
+    return cls(sim, space, core.gamma, planning_steps=N, device=device, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["dense", "banded"])
+def test_cuda_mpc_solve_batch_matches_cpu(solver):
+    """The batched float64 ADMM on the card against the same solve on the
+    CPU, at ANM6 h3 B=8.  Two chunks of 300 iterations (CUDA graphs on the
+    card) from the same bounds: iterates within 1e-9 (relative for the
+    duals and slacks of size ~5).  The full budget of
+    ``solve_batch``: some lanes end it on a dual-residual plateau (~2e-7
+    scaled), not at a fixed point, where the two devices' roundings leave
+    the solutions ~1e-8 p.u. and the objectives (weights up to 100 on the
+    branch slacks) ~4e-8 relative apart: held to 1e-7 p.u., 1e-6 relative
+    and 1e-5 MW."""
+    _need_cuda()
+    from gym_anm_tpu_torch.agents import MPCAgentConstant, MPCAgentConstantBanded
+
+    cls = MPCAgentConstantBanded if solver == "banded" else MPCAgentConstant
+    core = make_core(torch.float64, "cpu")
+    sv = BatchedEnv(core, 8, generator=torch.Generator().manual_seed(0)).reset()[1].state_vec
+    out = {}
+    for device in ("cuda", "cpu"):
+        agent = _mpc_agent(cls, device, solver_x64=True)
+        acts = agent.act_batch(sv.to(device))
+        assert acts.device.type == device and acts.dtype == torch.float64
+        sol = agent.last_batch_solution
+        x2, carry = agent._admm_batch(sol["lv"], sol["uv"], max_chunks=2, chunk_len=300)
+        out[device] = (acts.cpu(), sol["x"].cpu(), agent.q, [x2.cpu()] + [c.cpu() for c in carry])
+    (a_g, x_g, q, it_g), (a_c, x_c, _, it_c) = out["cuda"], out["cpu"]
+    for g, c in zip(it_g, it_c):
+        torch.testing.assert_close(g, c, rtol=1e-9, atol=1e-9)
+    obj_g, obj_c = x_g.numpy() @ q, x_c.numpy() @ q
+    assert np.max(np.abs(obj_g - obj_c) / np.maximum(1.0, np.abs(obj_c))) < 1e-6
+    torch.testing.assert_close(x_g, x_c, rtol=0, atol=1e-7)
+    torch.testing.assert_close(a_g, a_c, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["dense", "banded"])
+def test_cuda_mpc_iteration_graph_matches_eager(solver):
+    """Two chunks of 300 batched ADMM iterations on the card, replayed from
+    CUDA graphs of 50 iterations, against the same chunks launched eagerly
+    (float64, ANM6 h3, B=8): the same iterates, rho and residuals."""
+    _need_cuda()
+    from gym_anm_tpu_torch.agents import MPCAgentConstant, MPCAgentConstantBanded
+
+    cls = MPCAgentConstantBanded if solver == "banded" else MPCAgentConstant
+    agent = _mpc_agent(cls, "cuda", solver_x64=True)
+    core = make_core(torch.float64, "cpu")
+    sv = BatchedEnv(core, 8, generator=torch.Generator().manual_seed(1)).reset()[1].state_vec
+    agent.act_batch(sv.cuda())
+    lv, uv = agent.last_batch_solution["lv"], agent.last_batch_solution["uv"]
+    out = {}
+    for iters in (50, 0):
+        agent.GRAPH_ITERS = iters
+        x, carry = agent._admm_batch(lv, uv, max_chunks=2, chunk_len=300)
+        out[iters] = [x] + list(carry)
+    for g, e in zip(out[50], out[0]):
+        torch.testing.assert_close(g, e, rtol=0, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_cuda_mpc_closed_loop_through_the_tree_kernel():
+    """Three steps of a B=64 ANM6Easy fleet on the tree path driven by the
+    dense MPC agent (h3, float32) on the card: no lane terminates, and the
+    tree kernel runs every step; the agent leaves TF32 as it found it."""
+    _need_cuda()
+    from gym_anm_tpu_torch.agents import MPCAgentConstant
+
+    core = make_core(torch.float32, "cuda")
+    env = BatchedEnv(core, 64)
+    agent = _mpc_agent(MPCAgentConstant, "cuda")
+    es, first = env.reset()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        acts = agent.act_batch(first.state_vec)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    before = tree_cuda.KERNEL_LAUNCHES
+    for _ in range(3):
+        es, out = env.step(es, acts)
+        assert not bool(out.terminated.any())
+        assert float(out.reward.mean()) > -5
+        acts = agent.act_batch(out.state_vec, warm_start=True)
+    assert tree_cuda.KERNEL_LAUNCHES - before >= 3
