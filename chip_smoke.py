@@ -70,7 +70,23 @@ the port's paths on the card, one JSON line per phase:
    polish replaying ``tests/data/polish_calib_feeder141.npz`` (gap <= 1e-8,
    violation <= 1e-9) and a 2-step closed loop of cold solves.  The ADMM
    runs in float32.  Each row gives its solve seconds and the tree kernel's
-   launches over its loop (>= one a step); every value must be finite.
+   launches over its loop (>= one a step); every value must be finite;
+9. gym: the Gymnasium-free cores of the Gymnasium adapters (the card has no
+   Gymnasium), each row with the card's ``nvidia-smi`` line.  (a) ANM6Easy
+   and (b) feeder33 through ``envs/vector_core.py::LockstepEnv``, the core
+   of ``ANMVectorEnv``, at B=4096 in float32 on ``tree``: a full reset,
+   then 64 (16) steps of uniform random NumPy actions, each step's results
+   in one host copy: env-steps/s (median of timed segments after the
+   first), exactly 2 tree-kernel launches a step (the step and the fresh
+   states), the lanes reset (each returns reward 0, not terminated, its
+   fresh state's observation), then 4 profiled steps (device events and
+   busy ms a step); (c) the card against the CPU at B=64 over 8 steps from
+   the same draws, made on the CPU, under ``check.compare_trajectories``'
+   rule; (d) ``ANMEnv``'s one-lane ANM6Easy ``scan`` step in float64 with
+   its host copy (``envs/single_core.py``), ms a step on the card and on
+   the CPU, rewards equal within 1e-8; (e) lane 0 of (a) stepped 4 times
+   into a replay file (``Simulator.set_sim_state``,
+   ``render/replay.py::EpisodeRecorder``), its 4 frames parsed back.
 
 Every launch count is set to 0 just before a path runs and read just
 after, and the path's kernel must have run once per step.
@@ -137,6 +153,16 @@ MPC_CASES = (
 MPC_TERM_FRAC, MPC_MEAN_REWARD = 0.01, -5.0
 MPC_GAP, MPC_VIOL = 1e-6, 1e-6
 MPC_CALIB_GAP, MPC_CALIB_VIOL = 1e-8, 1e-9
+# The gym phase: the lockstep core of ANMVectorEnv at B=4096, (env, steps,
+# steps a timed segment), each profiled over a few more steps; the card
+# against the CPU from the same draws at B=64; the one-lane program of
+# ANMEnv.step; a replay of lane 0.
+GYM_B = 4096
+GYM_CASES = (("anm6easy", 64, 8), ("feeder33", 16, 4))
+GYM_PROFILE_STEPS = 4
+GYM_CHECK_B, GYM_CHECK_T = 64, 8
+GYM_SINGLE_T = 32
+GYM_REPLAY_STEPS = 4
 KERNEL_B = 4096
 # Grids of the tree-kernel check: (name, injection amplitude, x_tol);
 # feeder141 keeps the float32 mismatch-plateau tolerance of its task.
@@ -827,6 +853,208 @@ def phase_mpc(env_name, agent_name, N, B, loop_steps, loop_kw, polish, verify):
         raise AssertionError("%s: the closed loop misses the MPC bar: %s" % (what, row))
 
 
+def gym_card_row(smi, **row):
+    """A gym row, with the card it was measured on."""
+    return {"phase": "gym", **row, "card": smi}
+
+
+def phase_gym_lockstep(env_name, T, seg, smi):
+    """The lockstep core of ``ANMVectorEnv`` (``envs/vector_core.py``) at
+    B=4096 in float32 on the task's ``tree`` path: a full reset, then ``T``
+    steps of uniform random actions given as NumPy arrays, each step's
+    results brought to the host in one copy, as ``ANMVectorEnv.step`` does.
+    Returns the core and the last state."""
+    from gym_anm_tpu_torch import check
+    from gym_anm_tpu_torch.envs import vector_core
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from profile_torch_rollout import profile_unit
+    from gym_anm_tpu_torch.ops import tree_cuda
+
+    core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda")
+    kernel = path_kernel(core)
+    lock = vector_core.LockstepEnv(core, GYM_B, seed=0)
+    rng = np.random.default_rng(0)
+    actions = rng.uniform(core.action_low, core.action_high, size=(T, GYM_B, core.action_n)).astype(np.float32)
+    torch.cuda.synchronize()
+    zero_counts()
+    _, failed = lock.reset()
+    reset_launches = read_counts()[kernel]
+    needs = failed.cpu().numpy()
+    # Next-step autoreset: a lane flagged by the previous step returns reward
+    # 0, terminated False and the observation of the fresh state it now
+    # holds; the observation check is counted on the card (a few small ops a
+    # step, no sync), the rest is read from the step's host copy.
+    mismatched = torch.zeros((), dtype=torch.long, device="cuda")
+    fresh_failed = torch.zeros((), dtype=torch.long, device="cuda")
+    seconds, rows = [], []
+    for s in range(T // seg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(s * seg, (s + 1) * seg):
+            needs_t = lock.needs_reset
+            vs = lock.step(actions[t])
+            mismatched += (needs_t[:, None] & (vs.obs != core.observation(lock.es))).sum()
+            fresh_failed += (needs_t & lock.es.terminated).sum()
+            obs, reward, term = vector_core.to_numpy(vs)
+            rows.append((needs, obs, reward, term))
+            needs = term
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    counts = read_counts()
+
+    what = "gym %s lockstep" % env_name
+    reset_lanes = 0
+    for needs, obs, reward, term in rows:
+        if obs.shape != (GYM_B, core.obs_n) or not (np.isfinite(obs).all() and np.isfinite(reward).all()):
+            raise AssertionError("%s: observations or rewards not finite [B, obs_n]" % what)
+        if (reward[needs] != 0).any() or term[needs].any():
+            raise AssertionError("%s: a reset lane's step is not reward 0, not terminated" % what)
+        reset_lanes += int(needs.sum())
+    if int(mismatched):
+        raise AssertionError("%s: %d observation entries of reset lanes are not their fresh state's"
+                             % (what, int(mismatched)))
+    per_step = (counts[kernel] - reset_launches) / T
+    if per_step != 2:
+        raise AssertionError("%s launched %s %s times a step, expected 2" % (what, kernel, per_step))
+    if env_name == "feeder33" and reset_lanes == 0:
+        raise AssertionError("%s: no lane was reset; the autoreset branch did not run" % what)
+
+    prof = profile_unit(lambda: [vector_core.to_numpy(lock.step(a)) for a in actions[:GYM_PROFILE_STEPS]],
+                        GYM_PROFILE_STEPS, tree_cuda, kernel)
+    emit(gym_card_row(
+        smi, row="a" if env_name == "anm6easy" else "b", env=env_name, pf_method=core.pf_method, B=GYM_B, T=T,
+        steps_a_segment=seg, segment_s=seconds, env_steps_per_s=GYM_B * seg / float(np.median(seconds[1:])),
+        reset_launches=reset_launches, kernel=kernel, launches=counts, kernel_launches_a_step=per_step,
+        lanes_reset=reset_lanes, fresh_states_failed=int(fresh_failed),
+        terminated_frac=float(np.mean([r[3].mean() for r in rows])), mean_reward=float(np.mean([r[2] for r in rows])),
+        profiled_steps=GYM_PROFILE_STEPS, profile={k: v for k, v in prof.items() if k != "top_kernels"},
+    ))
+    return core, lock.es
+
+
+def phase_gym_card_vs_cpu(env_name, smi):
+    """``GYM_CHECK_T`` lockstep steps at B=``GYM_CHECK_B`` on the card and on
+    the CPU (the plain twins) from the same draws, made once on the CPU: the
+    initial states, each step's vars and fresh states; every eighth lane is
+    reset at the first step.  Held to ``check.compare_trajectories``' rule."""
+    from gym_anm_tpu_torch import check
+    from gym_anm_tpu_torch.envs import vector_core
+
+    cores = {dev: check.task_make_core(env_name)(dtype=torch.float32, device=dev) for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(0)
+    s0 = cores["cpu"].init_state_fn(gen, GYM_CHECK_B)
+    es = {dev: core.env_state_from_s0(s0.to(dev)) for dev, core in cores.items()}
+    needs = {dev: (torch.arange(GYM_CHECK_B) % 8 == 0).to(dev) for dev in cores}
+    lo, hi = (torch.as_tensor(a, dtype=torch.float32) for a in (cores["cpu"].action_low, cores["cpu"].action_high))
+    traj = {dev: {"state_vec": [], "reward": [], "terminated": []} for dev in cores}
+    zero_counts()
+    for _ in range(GYM_CHECK_T):
+        actions = lo + (hi - lo) * torch.rand((GYM_CHECK_B, lo.shape[0]), generator=gen)
+        d = vector_core.draw(cores["cpu"], es["cpu"], gen)
+        for dev, core in cores.items():
+            es[dev], vs = vector_core.step(core, es[dev], needs[dev], actions.to(dev), d.vars.to(dev),
+                                           d.fresh_s0.to(dev))
+            needs[dev] = vs.terminated
+            for k, v in (("state_vec", es[dev].state_vec), ("reward", vs.reward), ("terminated", vs.terminated)):
+                traj[dev][k].append(v.cpu().numpy())
+    counts = read_counts()
+    ref, got = ({k: np.stack(v) for k, v in traj[dev].items()} for dev in ("cpu", "cuda"))
+    res = check.compare_trajectories(ref, got)
+    emit(gym_card_row(smi, row="c", env=env_name, B=GYM_CHECK_B, T=GYM_CHECK_T, launches=counts,
+                      terminated_frac=float(ref["terminated"].mean()), **res))
+    if not res["pass"]:
+        raise AssertionError("gym %s: the card's lockstep steps disagree with the CPU's: %s" % (env_name, res))
+    if counts["tree_nr"] != 2 * GYM_CHECK_T:
+        raise AssertionError("gym %s: the card's steps launched tree_nr %d times" % (env_name, counts["tree_nr"]))
+
+
+def phase_gym_single(smi):
+    """The program ``ANMEnv.step`` runs (``envs/single_core.py``): a one-lane
+    ANM6Easy ``EnvCore(pf_method="scan")`` step in float64 from host actions
+    and vars, with its one host copy, on the card and on the CPU."""
+    from gym_anm_tpu_torch.core.env_core import EnvCore
+    from gym_anm_tpu_torch.core.grid import build_grid
+    from gym_anm_tpu_torch.core.obs import state_values_spec
+    from gym_anm_tpu_torch.envs.anm6.anm6_easy import _get_gen_time_series, _get_load_time_series, make_core
+    from gym_anm_tpu_torch.envs.anm6.network import network
+    from gym_anm_tpu_torch.envs.single_core import reset_lane, step_lane
+
+    spec, _ = build_grid(network, delta_t=0.25, lamb=100, dtype=np.float64)
+    P_loads, P_maxs = _get_load_time_series(), _get_gen_time_series()
+    s0 = make_core(torch.float64, device="cpu").init_state_fn(torch.Generator().manual_seed(3), 1)[0].numpy()
+    actions = None
+    ms, rewards = {}, {}
+    for dev in ("cuda", "cpu"):
+        core = EnvCore(spec, K=1, gamma=0.995, device=dev, dtype=torch.float64, costs_clipping=(1, 100),
+                       obs_values=state_values_spec(spec, 1), aux_bounds=np.array([[0, 95]]), pf_method="scan")
+        if actions is None:  # the same actions on both devices
+            actions = np.random.default_rng(3).uniform(core.action_low, core.action_high,
+                                                       size=(GYM_SINGLE_T + 1, core.action_n))
+        es, converged, state, _ = reset_lane(core, s0)
+        if not converged:
+            raise AssertionError("gym single %s: the initial state did not converge" % dev)
+        rewards[dev] = []
+        for t, action in enumerate(actions):
+            if t == 1:  # the first step warms up
+                t0 = time.perf_counter()
+            aux = int((state[-1] + 1) % 96)  # ANM6Easy.next_vars
+            vars = np.concatenate([P_loads[:, aux], P_maxs[:, aux], [aux]])
+            es, out = step_lane(core, es, action, vars)
+            state = out.state
+            rewards[dev].append(out.reward)
+        ms[dev] = (time.perf_counter() - t0) * 1e3 / GYM_SINGLE_T
+    div = float(np.max(np.abs(np.subtract(rewards["cuda"], rewards["cpu"]))))
+    emit(gym_card_row(smi, row="d", env="anm6easy", pf_method="scan", dtype="float64", B=1, T=GYM_SINGLE_T,
+                      ms_a_step={"cuda": ms["cuda"], "cpu": ms["cpu"]}, cuda_over_cpu=ms["cuda"] / ms["cpu"],
+                      max_reward_div=div))
+    if not (np.isfinite(rewards["cuda"]).all() and div <= 1e-8):
+        raise AssertionError("gym single: the card's rewards disagree with the CPU's by %s" % div)
+
+
+def phase_gym_replay(core, es, smi):
+    """Lane 0 of the ANM6Easy lockstep run, stepped ``GYM_REPLAY_STEPS``
+    times on the card, through the ``Simulator`` facade's
+    ``set_sim_state`` and ``render/replay.py``'s ``EpisodeRecorder`` into a
+    standalone HTML file, as ``ANMEnv.render(mode="replay")`` records one."""
+    import datetime
+    import tempfile
+
+    from gym_anm_tpu_torch.envs.anm6.network import network
+    from gym_anm_tpu_torch.envs.batched import take_lanes
+    from gym_anm_tpu_torch.envs.single_core import render_frame_args, render_init_args, step_lane
+    from gym_anm_tpu_torch.render.replay import EpisodeRecorder
+    from gym_anm_tpu_torch.simulator import Simulator
+    from gym_anm_tpu_torch.simulator.facade import _one_lane
+
+    sim = Simulator(network, 0.25, 100, dtype=torch.float32, device="cuda")
+    args, topology = render_init_args(sim.get_rendering_specs(), core.costs_clipping, sim.spec)
+    recorder = EpisodeRecorder("ANM6Easy", *args, topology=topology)
+    lane = take_lanes(es, torch.zeros(1, dtype=torch.long, device="cuda"))
+    step = datetime.timedelta(minutes=15)
+    date = datetime.datetime(2020, 1, 1) + step * int(lane.aux[0, 0])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(2)
+    for _ in range(GYM_REPLAY_STEPS):
+        vars = core.next_vars_fn(lane.state_vec, gen)[0].cpu().numpy()
+        lane, out = step_lane(core, lane, rng.uniform(core.action_low, core.action_high), vars)
+        sim.set_sim_state(_one_lane(lane.sim), converged=not out.terminated)
+        date += step
+        recorder.frame(date, 0, *render_frame_args(sim, out.e_loss, out.penalty))
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(recorder.write(os.path.join(tmp, "replay.html"))) as f:
+            html = f.read()
+    m = re.search(r"var REPLAY = (\{.*?\});</script>", html, re.S)
+    data = json.loads(m.group(1).replace("<\\/", "</")) if m else {}
+    frames = data.get("frames", [])
+    finite = all(np.isfinite(fr[k]).all() for fr in frames for k in ("pInjections", "qInjections", "vMagn"))
+    emit(gym_card_row(smi, row="e", env="anm6easy", frames=len(frames), html_bytes=len(html), finite=finite,
+                      n_bus=len(data.get("init", {}).get("vMagnMin", []))))
+    if len(frames) != GYM_REPLAY_STEPS or not finite or "setupReplay(REPLAY)" not in html:
+        raise AssertionError("gym replay: %d frames embedded (expected %d), finite %s"
+                             % (len(frames), GYM_REPLAY_STEPS, finite))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -834,7 +1062,7 @@ def main() -> int:
     try:
         import gym_anm_tpu_torch  # noqa: F401  (fails before any output where the package is absent)
 
-        phase_device()
+        smi = phase_device()
         ptxas = phase_build()
         checks = {
             "tree_nr": phase_tree_vs_plain(ptxas), "nr_dense": phase_nr_vs_plain(), "step_fused": phase_step_vs_plain(),
@@ -853,6 +1081,14 @@ def main() -> int:
         phase_fleet_train()
         for case in MPC_CASES:
             phase_mpc(*case)
+        for env_name, T, seg in GYM_CASES:
+            core, es = phase_gym_lockstep(env_name, T, seg, smi)
+            if env_name == "anm6easy":
+                replay_core, replay_es = core, es
+        for env_name in ("anm6easy", "feeder33"):
+            phase_gym_card_vs_cpu(env_name, smi)
+        phase_gym_single(smi)
+        phase_gym_replay(replay_core, replay_es, smi)
     except Exception:
         traceback.print_exc()
         return 1

@@ -8,6 +8,9 @@ The counterpart of ``make_core`` and the pure hooks of
 ``gym_anm_tpu.envs.anm6.anm6_easy``.  The hooks draw from a
 ``torch.Generator``, so samples differ from the JAX PRNG streams; the
 distribution is the same.
+
+The Gymnasium class ``ANM6Easy`` lives in :mod:`.anm6_easy_gym` and is
+reached here too, imported on first access.
 """
 
 from __future__ import annotations
@@ -147,3 +150,13 @@ def anm6easy_next_vars(s_t, P_loads, P_maxs):
     next time of day, ``[B, 6] = [P_load (3), P_pot (2), aux]``."""
     aux = torch.remainder(s_t[:, -1] + 1, 96).to(torch.int64)
     return torch.cat([P_loads[:, aux].T, P_maxs[:, aux].T, aux.to(P_loads.dtype)[:, None]], dim=-1)
+
+
+def __getattr__(name):
+    # The Gymnasium class, imported only when asked for: the batched path
+    # (make_core and the hooks) never imports Gymnasium.
+    if name == "ANM6Easy":
+        from .anm6_easy_gym import ANM6Easy
+
+        return ANM6Easy
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

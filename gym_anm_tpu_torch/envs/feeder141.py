@@ -6,6 +6,9 @@ synthetic 141-bus network of four trunks with short laterals
 under the dynamics of the 33-bus feeder task (:mod:`.feeder33`: stochastic
 loads around a daily profile, stochastic renewable potentials, the
 time-of-day index as the one auxiliary variable).
+
+The Gymnasium class ``Feeder141Env`` lives in :mod:`.feeder141_gym` and
+is reached here too, imported on first access.
 """
 
 from __future__ import annotations
@@ -61,3 +64,13 @@ def make_core(
         network=make_multi_feeder_network(),
         x_tol=x_tol,
     )
+
+
+def __getattr__(name):
+    # The Gymnasium class, imported only when asked for: the batched path
+    # (make_core and the hooks) never imports Gymnasium.
+    if name == "Feeder141Env":
+        from .feeder141_gym import Feeder141Env
+
+        return Feeder141Env
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -9,6 +9,9 @@ and one auxiliary variable: the time-of-day index.
 
 The hooks draw from a ``torch.Generator``, so samples differ from the JAX
 PRNG streams; the distributions are the same.
+
+The Gymnasium class ``Feeder33Env`` lives in :mod:`.feeder33_gym` and is
+reached here too, imported on first access.
 """
 
 from __future__ import annotations
@@ -111,3 +114,13 @@ def make_core(
         # retry round covers the tail (JAX package calibration).
         reset_attempts=2,
     )
+
+
+def __getattr__(name):
+    # The Gymnasium class, imported only when asked for: the batched path
+    # (make_core and the hooks) never imports Gymnasium.
+    if name == "Feeder33Env":
+        from .feeder33_gym import Feeder33Env
+
+        return Feeder33Env
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

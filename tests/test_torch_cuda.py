@@ -24,6 +24,10 @@ has only PyTorch:
   once per variant per step;
 * ``StepRateCounter.measure`` on the card counts the device work its block
   queued;
+* the lockstep core of ``ANMVectorEnv`` (``envs/vector_core.py``) on the
+  card against the CPU from the same draws, reset lanes included, launching
+  the tree kernel twice a step; the one-lane float64 step of ``ANMEnv``
+  (``envs/single_core.py``) on the card against the CPU;
 * the MPC agents' batched float64 solve (dense and banded) on the card
   against the same solve on the CPU, and a dense agent closing the loop of
   a B=64 ANM6Easy fleet through the tree kernel.
@@ -394,6 +398,74 @@ def test_cuda_env_core_matches_cpu(pf_method, warm_start, counter, atol):
         torch.testing.assert_close(out_g.state_vec.cpu()[live], out_c.state_vec[live], rtol=1e-4, atol=atol)
         torch.testing.assert_close(out_g.reward.cpu()[live], out_c.reward[live], rtol=1e-4, atol=atol)
     assert counter.KERNEL_LAUNCHES == before + 1 + T
+
+
+@pytest.mark.gpu
+def test_cuda_lockstep_matches_cpu():
+    """The lockstep step on the card and on the CPU from the same draws (made
+    on the CPU), every eighth lane reset at the first step; float32 rule as
+    in ``test_cuda_env_core_matches_cpu``'s tree case."""
+    from gym_anm_tpu_torch.envs import vector_core
+
+    _need_cuda()
+    gpu, cpu = make_core(torch.float32, "cuda"), make_core(torch.float32, "cpu")
+    B, T = 512, 4
+    gen = torch.Generator().manual_seed(0)
+    s0 = cpu.init_state_fn(gen, B)
+    es_g, es_c = gpu.env_state_from_s0(s0.cuda()), cpu.env_state_from_s0(s0)
+    needs_c = torch.arange(B) % 8 == 0
+    needs_g = needs_c.cuda()
+    actions = np.random.default_rng(0).uniform(cpu.action_low, cpu.action_high, (T, B, cpu.action_n))
+    before = tree_cuda.KERNEL_LAUNCHES
+    for t in range(T):
+        a = torch.tensor(actions[t], dtype=torch.float32)
+        d = vector_core.draw(cpu, es_c, gen)
+        es_c, vs_c = vector_core.step(cpu, es_c, needs_c, a, d.vars, d.fresh_s0)
+        es_g, vs_g = vector_core.step(gpu, es_g, needs_g, a.cuda(), d.vars.cuda(), d.fresh_s0.cuda())
+        if t == 0:
+            assert not vs_g.terminated[needs_g].any() and bool((vs_g.reward[needs_g] == 0).all())
+        agree = vs_g.terminated.cpu() == vs_c.terminated
+        assert float(agree.float().mean()) >= 0.99
+        live = agree & ~es_c.terminated
+        torch.testing.assert_close(vs_g.obs.cpu()[live], vs_c.obs[live], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(vs_g.reward.cpu()[live], vs_c.reward[live], rtol=1e-4, atol=1e-3)
+        needs_c, needs_g = vs_c.terminated, vs_g.terminated
+    assert tree_cuda.KERNEL_LAUNCHES == before + 2 * T
+
+
+@pytest.mark.gpu
+def test_cuda_single_lane_step_matches_cpu():
+    """``ANMEnv``'s one-lane float64 ``scan`` step on the card and on the CPU
+    from the same initial state, actions and vars (float64 plain solver on
+    both: no kernel)."""
+    from gym_anm_tpu_torch.core.env_core import EnvCore
+    from gym_anm_tpu_torch.core.obs import state_values_spec
+    from gym_anm_tpu_torch.envs.single_core import reset_lane, step_lane
+
+    _need_cuda()
+    spec, _ = build_grid(anm6_network, 0.25, 100, dtype=np.float64)
+    s0 = make_core(torch.float64, "cpu").init_state_fn(torch.Generator().manual_seed(1), 1)[0].numpy()
+    ref = make_core(torch.float64, "cpu")
+    rng = np.random.default_rng(1)
+    actions = rng.uniform(ref.action_low, ref.action_high, (6, ref.action_n))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        core = EnvCore(spec, K=1, gamma=0.995, device=dev, dtype=torch.float64, costs_clipping=(1, 100),
+                       obs_values=state_values_spec(spec, 1), aux_bounds=np.array([[0, 95]]), pf_method="scan")
+        es, converged, state, _ = reset_lane(core, s0)
+        assert converged
+        outs[dev] = []
+        for a in actions:
+            vars = ref.next_vars_fn(torch.tensor(state)[None], None)[0].numpy()
+            es, out = step_lane(core, es, a, vars)
+            state = out.state
+            outs[dev].append(out)
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        assert g.terminated == c.terminated
+        np.testing.assert_allclose([g.reward, g.e_loss, g.penalty], [c.reward, c.e_loss, c.penalty], rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_allclose(g.state, c.state, rtol=0, atol=1e-9)
+        np.testing.assert_allclose(g.obs, c.obs, rtol=0, atol=1e-9)
 
 
 @pytest.mark.gpu
