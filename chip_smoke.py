@@ -86,7 +86,24 @@ the port's paths on the card, one JSON line per phase:
    its host copy (``envs/single_core.py``), ms a step on the card and on
    the CPU, rewards equal within 1e-8; (e) lane 0 of (a) stepped 4 times
    into a replay file (``Simulator.set_sim_state``,
-   ``render/replay.py::EpisodeRecorder``), its 4 frames parsed back.
+   ``render/replay.py::EpisodeRecorder``), its 4 frames parsed back;
+10. plain paths, which must launch no kernel: the parity references
+   replayed through feeder141's ``scan``, ``while``, ``hybrid`` and
+   ``xla_hybrid`` (the plain dense solver) and through ``tree_xla`` (the
+   tree kernel's plain twin) on every task, under the same rule; feeder141
+   rollouts of chord-only ``hybrid`` at B=4096 (16 steps) and dense
+   ``scan`` at B=256 (4 steps), each with its peak device memory, a profile
+   of 2 more steps (device events, busy ms and busy share a step) and the
+   card's ``nvidia-smi`` line;
+11. parallel: ``parallel/dryrun.py::dryrun_multidevice`` over ``nccl`` on
+   every card of the machine, one spawned rank a card (three dp PPO steps,
+   a SAC collect and update, a sharded feeder33 fleet collect with no
+   collective, a sharded banded MPC solve equal to the unsharded one), then
+   in each rank an ANM6Easy ``tree`` rollout of its share of a global
+   B=4096: env-steps/s a rank, the tree kernel's launches (one a step) and
+   the collectives counted while stepping (none).  On a one-card machine
+   this is world size 1: it proves the NCCL path and the tree kernel under
+   it, not scaling.
 
 Every launch count is set to 0 just before a path runs and read just
 after, and the path's kernel must have run once per step.
@@ -124,6 +141,19 @@ ROLLOUT_CASES = (
 )
 # Replays warm-started: (env, pf_method); the method's CHECK_CONFIG budget.
 WARM_REPLAYS = (("anm6easy", "pallas"), ("feeder33", "hybrid"))
+# Replays through the plain paths, make_core's budgets: feeder141's dense and
+# chord paths, and the tree kernel's plain twin on every task.
+PLAIN_REPLAYS = tuple(("feeder141", m) for m in ("scan", "while", "hybrid", "xla_hybrid", "tree_xla")) + (
+    ("anm6easy", "tree_xla"), ("feeder33", "tree_xla"),
+)
+# feeder141's plain paths in rollouts: (pf_method, B, steps), each then
+# profiled over a few more steps.
+PLAIN_ROLLOUTS = (("hybrid", 4096, 16), ("scan", 256, 4))
+PLAIN_PROFILE_STEPS = 2
+# The parallel phase's ANM6Easy rollout: the global batch, steps, steps a
+# timed segment.
+PARALLEL_B, PARALLEL_T, PARALLEL_SEG = 4096, 64, 16
+PARALLEL_TIMEOUT = 600.0
 # The trainers' runs at the full batch: PPO iterations, SAC warm-up rounds
 # and iterations.
 TRAIN_B = 4096
@@ -513,12 +543,17 @@ def phase_step_vs_plain():
     return rows
 
 
-def phase_parity():
+def phase_parity(plain=False):
+    """The replays of every ``check.CHECK_CONFIG`` path and the warm ones, or
+    (``plain``) those of :data:`PLAIN_REPLAYS`."""
     from gym_anm_tpu_torch import check
 
-    runs = [(env, method, kw) for env, cfg in check.CHECK_CONFIG.items() for method, kw in cfg["methods"].items()]
-    runs += [(env, method, dict(check.CHECK_CONFIG[env]["methods"][method], warm_start=True))
-             for env, method in WARM_REPLAYS]
+    if plain:
+        runs = [(env, method, {}) for env, method in PLAIN_REPLAYS]
+    else:
+        runs = [(env, method, kw) for env, cfg in check.CHECK_CONFIG.items() for method, kw in cfg["methods"].items()]
+        runs += [(env, method, dict(check.CHECK_CONFIG[env]["methods"][method], warm_start=True))
+                 for env, method in WARM_REPLAYS]
     for env, method, kw in runs:
         data = check.load_reference(env)
         T = data["actions"].shape[0]
@@ -541,6 +576,8 @@ def phase_parity():
         if kernel is not None and counts[kernel] < T + 1:
             raise AssertionError("the %s replay launched %s %d times, expected >= %d"
                                  % (method, kernel, counts[kernel], T + 1))
+        if kernel is None and any(counts.values()):
+            raise AssertionError("the plain %s %s replay launched a kernel: %s" % (env, method, counts))
 
 
 def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False, auto_reset=None):
@@ -594,6 +631,111 @@ def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False, auto_reset
         "mean_reward": float(reward.mean()), "kernel": kernel, "launches": counts,
     })
     return kernel, counts[kernel]
+
+
+def profile(run, units, counter, kname):
+    """``scripts/profile_torch_rollout.py::profile_unit``: ``run`` untraced,
+    then under the profiler."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from profile_torch_rollout import profile_unit
+
+    return profile_unit(run, units, counter, kname)
+
+
+def phase_plain_rollout(pf_method, B, T, smi):
+    """feeder141 through a plain path at B lanes: one reset, one T-step
+    rollout of uniform random actions (no kernel may launch), the peak
+    device memory, then a profile of a few more steps."""
+    from gym_anm_tpu_torch import check
+    from gym_anm_tpu_torch.envs.batched import BatchedEnv
+
+    core = check.task_make_core("feeder141")(dtype=torch.float32, device="cuda", pf_method=pf_method)
+    if path_kernel(core) is not None:
+        raise AssertionError("feeder141 %s is not a plain path" % pf_method)
+    env = BatchedEnv(core, B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    (es, first), reset_s = timed(env.reset)
+    (es, (reward, terminated)), seconds = timed(lambda: env.rollout(es, T))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    obs = core.observation(es)
+    what = "feeder141 %s rollout" % pf_method
+    if any(counts.values()):
+        raise AssertionError("%s launched a kernel: %s" % (what, counts))
+    if reward.shape != (T, B) or not (bool(torch.isfinite(reward).all()) and bool(torch.isfinite(obs).all())):
+        raise AssertionError("%s: rewards or observations not finite" % what)
+    if bool(first.terminated.any()):
+        raise AssertionError("%s: the reset left %d lanes terminated" % (what, int(first.terminated.sum())))
+    prof = profile(lambda: env.rollout(es, PLAIN_PROFILE_STEPS), PLAIN_PROFILE_STEPS, None, None)
+    emit({
+        "phase": "rollout", "env": "feeder141", "pf_method": pf_method, "B": B, "T": T, "x_tol": core.x_tol,
+        "max_iter": core.max_iter, "chord_iters": core.chord_iters, "reset_s": reset_s, "rollout_s": seconds,
+        "ms_a_step": seconds * 1e3 / T, "env_steps_per_s": B * T / seconds, "peak_memory_bytes": peak,
+        "terminated_frac": float(terminated[-1].float().mean()), "mean_reward": float(reward.mean()),
+        "kernel": None, "launches": counts, "profiled_steps": PLAIN_PROFILE_STEPS,
+        "profile": {k: v for k, v in prof.items() if k not in ("kernel", "kernel_launches", "kernel_ms_per_launch")},
+        "card": smi,
+    })
+
+
+def _parallel_rollout(mesh, global_B=PARALLEL_B):
+    """In each rank of the parallel phase: ANM6Easy ``tree`` over this rank's
+    share of a global batch of ``global_B`` lanes, in timed segments."""
+    from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
+    from gym_anm_tpu_torch.envs.batched import BatchedEnv
+    from gym_anm_tpu_torch.parallel import sharding
+
+    dev = sharding.rank_device(mesh)
+    lanes = sharding.batch_sharding(mesh).lanes(global_B)
+    gen = torch.Generator(device=dev).manual_seed(sharding.rank_seed(0, mesh.get_local_rank()))
+    env = BatchedEnv(make_core(torch.float32, dev), lanes.stop - lanes.start, generator=gen)
+    es, _ = env.reset()
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    c0 = sharding.COLLECTIVES
+    seconds, rewards = [], []
+    for _ in range(PARALLEL_T // PARALLEL_SEG):
+        t0 = time.perf_counter()
+        es, (reward, _) = env.rollout(es, PARALLEL_SEG)
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+        rewards.append(reward)
+    counts = read_counts()
+    collectives = sharding.COLLECTIVES - c0
+    reward = sharding.gather_batch(torch.cat(rewards).T.contiguous(), mesh)  # [B, T], every rank's lanes
+    return {
+        "card": torch.cuda.get_device_name(dev), "global_B": global_B, "local_B": env.batch_size,
+        "T": PARALLEL_T, "segment_s": seconds,
+        "env_steps_per_s": env.batch_size * PARALLEL_SEG / float(np.median(seconds[1:])),
+        "launches": counts, "collectives_while_stepping": collectives,
+        "gathered_B": reward.shape[0], "mean_reward": float(reward.mean()),
+        "finite": bool(torch.isfinite(reward).all()),
+    }
+
+
+def phase_parallel(smi):
+    """The dry run over NCCL on every card, one spawned rank a card, then
+    :func:`_parallel_rollout` in each rank."""
+    from gym_anm_tpu_torch.parallel.dryrun import dryrun_multidevice
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = dryrun_multidevice(world, "nccl", extra=_parallel_rollout, timeout=PARALLEL_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    note = ("world size 1: proves the NCCL path and the tree kernel under it, not scaling" if world == 1
+            else "one rank a card")
+    for r in ranks:
+        roll = r.pop("extra")
+        emit({"phase": "parallel", "world": world, "seconds": seconds, "note": note, "card": smi, **r,
+              "rollout": roll})
+        if roll["launches"]["tree_nr"] != PARALLEL_T or roll["collectives_while_stepping"] != 0:
+            raise AssertionError("rank %d: %d tree kernel launches over %d steps, %d collectives while stepping"
+                                 % (r["rank"], roll["launches"]["tree_nr"], PARALLEL_T,
+                                    roll["collectives_while_stepping"]))
+        if not roll["finite"] or roll["gathered_B"] != PARALLEL_B or r["backend"] != "nccl":
+            raise AssertionError("rank %d: the sharded rollout is not the global batch over nccl" % r["rank"])
 
 
 def check_finite(name, metrics, modules):
@@ -867,8 +1009,6 @@ def phase_gym_lockstep(env_name, T, seg, smi):
     from gym_anm_tpu_torch import check
     from gym_anm_tpu_torch.envs import vector_core
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
-    from profile_torch_rollout import profile_unit
     from gym_anm_tpu_torch.ops import tree_cuda
 
     core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda")
@@ -920,8 +1060,8 @@ def phase_gym_lockstep(env_name, T, seg, smi):
     if env_name == "feeder33" and reset_lanes == 0:
         raise AssertionError("%s: no lane was reset; the autoreset branch did not run" % what)
 
-    prof = profile_unit(lambda: [vector_core.to_numpy(lock.step(a)) for a in actions[:GYM_PROFILE_STEPS]],
-                        GYM_PROFILE_STEPS, tree_cuda, kernel)
+    prof = profile(lambda: [vector_core.to_numpy(lock.step(a)) for a in actions[:GYM_PROFILE_STEPS]],
+                   GYM_PROFILE_STEPS, tree_cuda, kernel)
     emit(gym_card_row(
         smi, row="a" if env_name == "anm6easy" else "b", env=env_name, pf_method=core.pf_method, B=GYM_B, T=T,
         steps_a_segment=seg, segment_s=seconds, env_steps_per_s=GYM_B * seg / float(np.median(seconds[1:])),
@@ -1089,6 +1229,12 @@ def main() -> int:
             phase_gym_card_vs_cpu(env_name, smi)
         phase_gym_single(smi)
         phase_gym_replay(replay_core, replay_es, smi)
+        # The plain paths after every other timed phase, so that neither
+        # their host loops nor their profiles can perturb those timings.
+        phase_parity(plain=True)
+        for case in PLAIN_ROLLOUTS:
+            phase_plain_rollout(*case, smi)
+        phase_parallel(smi)
     except Exception:
         traceback.print_exc()
         return 1

@@ -38,40 +38,18 @@ with the slack *device* mapping position, not the slack bus position
 
 The solver runs in float32 (``solver_x64=False``) or float64, both native
 on the card.  Every contraction of the agent runs with TF32 off (scoped by
-:func:`full_precision`, the previous setting restored afterwards): the KKT
-factorizations are one-shot, and TF32's 10-bit mantissa can make them
-indefinite.
+:func:`~gym_anm_tpu_torch.ops.precision.full_precision`, the previous
+setting restored afterwards): the KKT factorizations are one-shot, and
+TF32's 10-bit mantissa can make them indefinite.
 """
 
 from __future__ import annotations
 
-import contextlib
-import functools
-
 import numpy as np
 import torch
 
-
-@contextlib.contextmanager
-def full_precision():
-    """TF32 off for CUDA matrix products inside the block; the previous
-    settings are restored on exit."""
-    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
-
-
-def _full_precision(f):
-    @functools.wraps(f)
-    def g(*args, **kwargs):
-        with full_precision():
-            return f(*args, **kwargs)
-
-    return g
+from ..ops.precision import full_precision, in_full_precision  # noqa: F401 (full_precision: re-exported)
+from ..parallel.sharding import all_gather
 
 
 def inv_spd(K):
@@ -484,7 +462,7 @@ class MPCAgent:
         K = self._sigma * eye + (A.T * rho[:, None, :]) @ A
         return inv_spd(K)
 
-    @_full_precision
+    @in_full_precision
     def _admm_batch_full(self, ls, us, x0, z0, y0, rho0, n_chunks, chunk_len, eps):
         """Batched ADMM on the device: ``ls``/``us`` ``[B, m]`` -> ``x [B, n]``.
 
@@ -531,7 +509,7 @@ class MPCAgent:
         K = self._sigma * np.eye(self.nz) + (self._As.T * rho_vec) @ self._As
         return np.linalg.cholesky(K)
 
-    @_full_precision
+    @in_full_precision
     def _admm(self, lv, uv, eps=1e-9, max_chunks=12, warm=None):
         """Run ADMM to convergence with warm-started chunks and adaptive rho
         (refactorizing the KKT matrix on rho updates, as OSQP does).
@@ -751,7 +729,8 @@ class MPCAgent:
         uv[:, r] = socs[:, i]
         return lv, uv
 
-    def solve_batch(self, load_forecasts, gen_forecasts, init_socs, warm_start=False, warm_shift=False, polish=False):
+    def solve_batch(self, load_forecasts, gen_forecasts, init_socs, warm_start=False, warm_shift=False, polish=False,
+                    sharding=None):
         """Solve the N-stage DC-OPF for a batch of B environment lanes.
 
         Parameters (tensors or host arrays)
@@ -770,8 +749,19 @@ class MPCAgent:
         when the residual check fails, e.g. after a large state jump).  The
         carry is invalidated when the batch size changes.  ``polish`` runs
         the host float64 active-set polish on each lane.
+
+        ``sharding`` (a :func:`~gym_anm_tpu_torch.parallel.sharding.batch_sharding`
+        of a mesh whose rank device is the agent's) splits the lanes over the
+        ranks: each rank assembles every lane's bounds, solves its own lanes
+        (the ADMM issues no collective: lanes are independent) and gathers
+        the actions with one ``all_gather``, so every rank returns the
+        global ``[B, action_n]``.  The warm carry, the polish and
+        ``last_batch_solution`` are this rank's lanes'.
         """
         lv, uv = self.batch_bounds(load_forecasts, gen_forecasts, init_socs)
+        if sharding is not None:
+            lanes = sharding.lanes(lv.shape[0])
+            lv, uv = lv[lanes], uv[lanes]
         Bsz = lv.shape[0]
         warm = getattr(self, "_warm_carry", None)
         if not warm_start:
@@ -804,7 +794,10 @@ class MPCAgent:
             ],
             dim=1,
         )
-        return torch.clamp(acts, self._act_low, self._act_high)
+        acts = torch.clamp(acts, self._act_low, self._act_high)
+        if sharding is not None:
+            acts = all_gather(acts, sharding.mesh)
+        return acts
 
     def _state_vecs(self, state_vecs):
         """Canonical state vectors as a float64 ``[B, state_n]`` tensor on the device."""

@@ -33,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mpc import IterationGraph, MPCAgent, _full_precision, _numpy, inv_spd
+from ..ops.precision import in_full_precision
+from .mpc import IterationGraph, MPCAgent, _numpy, inv_spd
 from .mpc_constant import MPCAgentConstant
 from .mpc_perfect import MPCAgentPerfect
 
@@ -342,7 +343,7 @@ class MPCAgentBanded(MPCAgent):
             torch.baddbmm(v[s], Msub[s + 1].mT, x[s + 1], alpha=-1, out=x[s])
         return x[..., 0]
 
-    @_full_precision
+    @in_full_precision
     def _admm_batch_full_banded(self, ls, us, x0, z0, y0, rho0, n_chunks, chunk_len, eps):
         """Banded analog of the dense backend's batched ADMM on the device:
         chunks of fixed iterations, per-lane adaptive rho with on-device

@@ -24,7 +24,7 @@ class MPCAgentConstant(MPCAgent):
         P_gen_forecast = np.array([P_gen_forecast for _ in range(self.planning_steps)]).T
         return P_load_forecast, P_gen_forecast
 
-    def act_batch(self, state_vecs, warm_start=False, warm_shift=False, polish=False):
+    def act_batch(self, state_vecs, warm_start=False, warm_shift=False, polish=False, sharding=None):
         """Batched policy over B environment lanes.
 
         ``state_vecs [B, state_n]`` (a tensor or a host array) are canonical
@@ -36,7 +36,8 @@ class MPCAgentConstant(MPCAgent):
         (receding-horizon warm start, see ``MPCAgent.solve_batch``);
         ``warm_shift=True`` additionally realigns it by one stage (a
         near-no-op for this constant-forecast policy, where the optimal
-        plan is stage-stationary).
+        plan is stage-stationary).  ``sharding`` splits the lanes over the
+        ranks of a mesh (``MPCAgent.solve_batch``).
         """
         sv = self._state_vecs(state_vecs)
         spec = self.spec
@@ -49,4 +50,6 @@ class MPCAgentConstant(MPCAgent):
         N = self.planning_steps
         load_f = loads[:, :, None].expand(-1, -1, N)
         gen_f = p_pot[:, :, None].expand(-1, -1, N)
-        return self.solve_batch(load_f, gen_f, socs, warm_start=warm_start, warm_shift=warm_shift, polish=polish)
+        return self.solve_batch(
+            load_f, gen_f, socs, warm_start=warm_start, warm_shift=warm_shift, polish=polish, sharding=sharding
+        )

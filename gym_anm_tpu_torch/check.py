@@ -5,8 +5,11 @@ internal variables are committed to the repo (``tests/data/onchip_ref_*.npz``)
 together with the host-float64 trajectory they produce;
 :func:`rollout_given` replays the identical inputs through the port and
 :func:`compare_trajectories` compares states, rewards and termination
-decisions step by step.  ``load_reference`` and ``compare_trajectories``
-are NumPy copies of the JAX package's functions.
+decisions step by step; :func:`run_check` does both for every solver path
+of a task.  ``load_reference`` and ``compare_trajectories`` are NumPy
+copies of the JAX package's functions.  The references are made by the JAX
+package (``scripts/gen_onchip_refs.py``), never by the port: a reference
+the port made would hold the port against itself.
 """
 
 from __future__ import annotations
@@ -136,3 +139,26 @@ def load_reference(env_name: str) -> dict:
     """Load the committed inputs + host-f64 trajectory for an env."""
     with np.load(ref_path(env_name)) as z:
         return {k: z[k] for k in z.files}
+
+
+def run_check(env_name: str, make_core, methods=None, term_tol=0.02, state_tol=5e-3, reward_tol=5e-3,
+              dtype=torch.float32, device="cuda") -> dict:
+    """Replay the committed trajectory of ``env_name`` through each solver
+    path and compare, as the JAX package's ``run_check`` does.
+
+    ``methods`` maps a ``pf_method`` to its ``make_core`` keyword arguments
+    (default: the task's :data:`CHECK_CONFIG` paths); each core is built by
+    ``make_core(dtype=dtype, device=device, pf_method=method, **kw)``.
+    Returns ``{method: comparison_dict, "pass": all_passed}``.
+    """
+    data = load_reference(env_name)
+    methods = dict(methods) if methods is not None else dict(CHECK_CONFIG[env_name]["methods"])
+    ref = {k: data[k] for k in ("state_vec", "reward", "terminated")}
+    out = {}
+    for method, kw in methods.items():
+        core = make_core(dtype=dtype, device=device, pf_method=method, **kw)
+        sv, rw, tm = rollout_given(core, data["s0"], data["actions"], data["vars"])
+        got = {"state_vec": sv.cpu().numpy(), "reward": rw.cpu().numpy(), "terminated": tm.cpu().numpy()}
+        out[method] = compare_trajectories(ref, got, term_tol=term_tol, state_tol=state_tol, reward_tol=reward_tol)
+    out["pass"] = all(r["pass"] for r in out.values())
+    return out

@@ -16,6 +16,8 @@ The counterpart of ``gym_anm_tpu.core.transition`` (``transition``,
 ``pf_method="fused"``/``"fused_hybrid"`` run all six stages in one launch of
 the whole-transition kernel (``ops/step_cuda.py``).  Each kernel runs on a
 CUDA float32 batch; on the CPU its plain PyTorch twin runs instead.
+``pf_method="tree_xla"`` runs the tree-NR kernel's plain twin on every
+device (the JAX package's XLA level sweep, an ablation).
 
 All power quantities are per-unit; complex quantities are (re, im) real
 pairs.  Dynamic inputs carry one leading batch axis ``[B, k]``.  The
@@ -30,15 +32,18 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.nr_cuda import solve_pfe_nr
+from ..ops.nr_cuda import NN_MAX, solve_pfe_nr
 from ..ops.power_flow import cmul as _cmul, solve_pfe
 from ..ops.step_cuda import fused_transition
 from ..ops.tree_cuda import solve_pfe_tree
 from .grid import GridTensors, POLY_ROW_P_CAP, POLY_ROW_P_FLOOR
 from .state import SimState
 
-# Every solver path of the JAX package but its "tree_xla" ablation.
-PF_METHODS = ("tree", "pallas", "hybrid", "fused", "fused_hybrid", "scan", "while", "xla_hybrid")
+# Every solver path of the JAX package.
+PF_METHODS = ("tree", "tree_xla", "pallas", "hybrid", "fused", "fused_hybrid", "scan", "while", "xla_hybrid")
+# The methods only the dense kernels compute; they take systems of at most
+# NN_MAX unknowns.
+DENSE_KERNEL_METHODS = ("pallas", "fused", "fused_hybrid")
 
 
 class TransitionResult(NamedTuple):
@@ -137,28 +142,50 @@ def _reward(g: GridTensors, dev_p, gen_p_pot, v_re, v_im, br_s):
     return -(e_loss + penalty), e_loss, penalty
 
 
+def dense_kernels_refusal(pf_method: str, n_bus: int) -> ValueError:
+    """The error of a dense-kernel method on a grid beyond ``NN_MAX``
+    unknowns."""
+    n = 2 * (n_bus - 1)
+    return ValueError(
+        "pf_method=%r unsupported at %d buses: the per-lane %d x %d Jacobian exceeds the dense kernels' %d "
+        "unknowns. Use 'tree' (exact), 'hybrid' (chord-only) or 'scan'." % (pf_method, n_bus, n, n, NN_MAX)
+    )
+
+
 def resolve_solver_path(g: GridTensors, pf_method: str):
     """The solver :func:`transition` dispatches to, as ``(path,
     effective_pf_method)``; the single source of the dispatch.
 
     ``path`` is ``"fused_kernel"`` (the whole-transition kernel),
     ``"nr_kernel"`` (the dense-NR kernel), ``"tree_kernel"`` (the tree-NR
-    kernel, radial grids only) or ``"torch"`` (the plain ``solve_pfe``).  The
-    kernels run on a CUDA float32 batch and their plain twins on the CPU.
-    ``effective_pf_method`` is ``pf_method`` after the fused path's
-    semantic downgrade (as in the JAX package): a grid without a load, a
-    generator and a storage unit runs ``"fused"`` as ``"pallas"`` and
-    ``"fused_hybrid"`` as ``"hybrid"``.
+    kernel, radial grids only), ``"tree_plain"`` (``"tree_xla"``: the
+    tree-NR kernel's plain twin on every device, the counterpart of the JAX
+    package's XLA level sweep; the one path where a kernel's plain twin runs
+    on the card on purpose, as an ablation) or ``"torch"`` (the plain
+    ``solve_pfe``).  The kernels run on a CUDA float32 batch and their plain
+    twins on the CPU.  ``effective_pf_method`` is ``pf_method`` after the
+    JAX package's semantic downgrades: a grid without a load, a generator
+    and a storage unit runs ``"fused"`` as ``"pallas"`` and
+    ``"fused_hybrid"`` as ``"hybrid"``.  On a grid of more than ``NN_MAX``
+    unknowns, which the dense kernels do not take, ``"pallas"``,
+    ``"fused"`` and ``"fused_hybrid"`` raise (:func:`dense_kernels_refusal`)
+    and ``"hybrid"`` is the JAX package's chord-only ablation of that size
+    (``gym_anm_tpu/envs/feeder141.py``), which both packages compute on the
+    plain solver.
     """
     if pf_method not in PF_METHODS:
         raise ValueError("pf_method %r is not supported; the port has %s" % (pf_method, PF_METHODS))
-    if pf_method == "tree":
+    if pf_method in ("tree", "tree_xla"):
         if g.tree is None:
             raise ValueError(
-                "pf_method='tree' requires a radial network (a tree rooted at the "
-                "slack bus); this network is meshed or disconnected"
+                "pf_method=%r requires a radial network (a tree rooted at the "
+                "slack bus); this network is meshed or disconnected" % (pf_method,)
             )
-        return "tree_kernel", pf_method
+        return ("tree_kernel" if pf_method == "tree" else "tree_plain"), pf_method
+    if 2 * (g.spec.n_bus - 1) > NN_MAX:
+        if pf_method in DENSE_KERNEL_METHODS:
+            raise dense_kernels_refusal(pf_method, g.spec.n_bus)
+        return "torch", pf_method
     eff = pf_method
     if eff in ("fused", "fused_hybrid"):
         if g.step is not None:
@@ -224,7 +251,8 @@ def transition(
 
     ``pf_method`` (one of :data:`PF_METHODS`, dispatched by
     :func:`resolve_solver_path`): ``"tree"`` is exact per-lane NR with the
-    tree block elimination (radial grids); ``"pallas"`` dense per-lane NR,
+    tree block elimination (radial grids), ``"tree_xla"`` the same in plain
+    PyTorch; ``"pallas"`` dense per-lane NR,
     ``"hybrid"`` the same after ``chord_iters`` chord iterations;
     ``"fused"``/``"fused_hybrid"`` those two solves inside the
     whole-transition kernel; ``"scan"``/``"while"``/``"xla_hybrid"`` the
@@ -262,9 +290,9 @@ def transition(
 
     # Newton-Raphson load flow; the slack bus is internal index 0.
     p_in, q_in = bus_p[:, 1:], bus_q[:, 1:]
-    if path == "tree_kernel":
+    if path in ("tree_kernel", "tree_plain"):
         v_re, v_im, _, _, converged = solve_pfe_tree(
-            g.tree, p_in, q_in, x_tol=x_tol, max_iter=max_iter, init=v_init
+            g.tree, p_in, q_in, x_tol=x_tol, max_iter=max_iter, init=v_init, plain=path == "tree_plain"
         )
     elif path == "nr_kernel":
         v_re, v_im, _, _, converged = solve_pfe_nr(

@@ -15,51 +15,58 @@ from __future__ import annotations
 
 import torch
 
-# The power-flow methods the JAX package refuses at this size: its per-lane
-# 560 x 560 Jacobian tiles exceed the TPU's VMEM, and the port's dense
-# kernels take systems of at most 64 unknowns.
-REFUSED_METHODS = ("pallas", "fused", "fused_hybrid")
-# The JAX package's calibrated tree-NR budget at this size: rollout-measured
-# p100 = 15 including termination-adjacent lanes.
-TREE_MAX_ITER = 18
+from ..core.transition import DENSE_KERNEL_METHODS, dense_kernels_refusal
+
+# Buses of the network; its 280 unknowns exceed what the dense kernels take.
+N_BUS = 141
+
+
+def pf_max_iter_for(pf_method: str) -> int:
+    """The JAX package's calibrated NR budgets at this size: 0 for the
+    chord-only hybrids, 18 for the tree solves (rollout-measured p100 = 15
+    including termination-adjacent lanes) and 6 for dense NR."""
+    if pf_method in ("hybrid", "xla_hybrid"):
+        return 0
+    if pf_method in ("tree", "tree_xla"):
+        return 18
+    return 6
 
 
 def make_core(
-    dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", x_tol=None, warm_start=False
+    dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", chord_iters=28, x_tol=None,
+    nr_pivot=False, warm_start=False,
 ):
     """Build the feeder141 :class:`~gym_anm_tpu_torch.core.env_core.EnvCore`
     computing on ``device`` (the card unless the caller passes ``"cpu"``) in
     ``dtype``.
 
-    ``pf_method="tree"`` (the exact per-lane NR of the tree-NR kernel) is
-    the only method ported at this size; ``pf_max_iter=None`` takes its
-    calibrated budget of 18.  ``x_tol=None`` takes 3e-5 in float32 and 1e-5
-    in float64: the float32 mismatch of this network plateaus just above the
-    reference's 1e-5 on full-load lanes whatever the solver, so every
-    float32 configuration uses 3e-5 (3 kVA on the 100 MVA base).
+    ``pf_method``: ``"tree"`` (the default) is the exact per-lane NR of the
+    tree-NR kernel and ``"tree_xla"`` its plain twin; ``"hybrid"`` and
+    ``"xla_hybrid"`` are chord-only (``chord_iters`` iterations of one
+    ``[280, 280] x [280, B]`` product each, lanes the chord cannot converge
+    flagged unconverged: an ablation); ``"scan"`` and ``"while"`` are dense
+    per-lane NR for verification.  All but ``"tree"`` run plain PyTorch.
+    ``pf_max_iter=None`` takes :func:`pf_max_iter_for`.  ``x_tol=None``
+    takes 3e-5 in float32 and 1e-5 in float64 for every method: the float32
+    mismatch of this network plateaus just above the reference's 1e-5 on
+    full-load lanes whatever the solver (3e-5 is 3 kVA on the 100 MVA base).
     ``warm_start`` warm-starts each step's solve from the previous step's
     voltages (off by default).
     """
     from .feeder33 import make_core as feeder_make_core
     from .feeder_networks import make_multi_feeder_network
 
-    if pf_method in REFUSED_METHODS:
-        raise ValueError(
-            "pf_method=%r unsupported at 141 buses: the per-lane 280 x 280 Jacobian exceeds the "
-            "dense kernels' 64 unknowns. Use 'tree'." % (pf_method,)
-        )
-    if pf_method != "tree":
-        raise ValueError(
-            "pf_method=%r is not ported for the 141-bus task yet (ROADMAP, Queue 1 item 8); "
-            "use 'tree'" % (pf_method,)
-        )
+    if pf_method in DENSE_KERNEL_METHODS:
+        raise dense_kernels_refusal(pf_method, N_BUS)
     if x_tol is None:
         x_tol = 1e-5 if dtype == torch.float64 else 3e-5
     return feeder_make_core(
         dtype=dtype,
         device=device,
-        pf_max_iter=TREE_MAX_ITER if pf_max_iter is None else pf_max_iter,
+        pf_max_iter=pf_max_iter_for(pf_method) if pf_max_iter is None else pf_max_iter,
         pf_method=pf_method,
+        chord_iters=chord_iters,
+        nr_pivot=nr_pivot,
         warm_start=warm_start,
         network=make_multi_feeder_network(),
         x_tol=x_tol,

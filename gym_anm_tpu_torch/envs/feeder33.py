@@ -30,12 +30,12 @@ def _daily(t):
 
 
 def pf_max_iter_for(pf_method: str) -> int:
-    """The JAX package's calibrated NR budget for this task: 10 for tree
-    (rollout-measured p100 = 6, +4 margin), 6 for the true-NR tail of the
-    hybrid methods, 15 for dense pure NR."""
+    """The JAX package's calibrated NR budget for this task: 10 for the
+    tree solves (rollout-measured p100 = 6, +4 margin), 6 for the true-NR
+    tail of the hybrid methods, 15 for dense pure NR."""
     if pf_method in ("hybrid", "xla_hybrid", "fused_hybrid"):
         return 6
-    if pf_method == "tree":
+    if pf_method in ("tree", "tree_xla"):
         return 10
     return 15
 

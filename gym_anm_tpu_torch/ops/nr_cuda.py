@@ -33,6 +33,8 @@ import ctypes
 
 import torch
 
+from .precision import full_precision
+
 # Launches of the CUDA kernel in this process (one per successful launch).
 KERNEL_LAUNCHES = 0
 # The kernel solves systems of 2(n-1) <= NN_MAX unknowns.
@@ -156,7 +158,17 @@ def _solve_system(Ab, pivot):
     return dx
 
 
-def nr_core_plain(Yre, Yim, J0inv, p, q, *, x_tol, max_iter, chord_iters, pivot=False, init=None):
+def chord_product(J0inv, F):
+    """The chord step ``J0inv @ F`` (``[2m, 2m] x [2m, B]``) as one library
+    product, as the JAX package's XLA solver computes it, with TF32 off
+    whatever the caller set (a one-shot contraction stays in full
+    float32)."""
+    with full_precision():
+        return J0inv @ F
+
+
+def nr_core_plain(Yre, Yim, J0inv, p, q, *, x_tol, max_iter, chord_iters, pivot=False, init=None,
+                  chord_matmul=False):
     """The plain twin of the kernel's per-lane solve, batch-last.
 
     ``Yre, Yim [n, n]``, ``J0inv [2m, 2m]`` (read when ``chord_iters > 0``),
@@ -165,7 +177,10 @@ def nr_core_plain(Yre, Yim, J0inv, p, q, *, x_tol, max_iter, chord_iters, pivot=
     :func:`~gym_anm_tpu_torch.ops.power_flow.warm_init_theta_vm`: each lane
     starts from it where its mismatch is finite and smaller than the flat
     start's; lanes the chord prefix made worse restart from the flat start
-    either way.  Returns ``(vr, vi, ir, ii, diff, it)``: the bus
+    either way.  ``chord_matmul`` computes each chord step as one
+    :func:`chord_product` instead of the kernel's column-by-column sum (the
+    plain solver ``ops/power_flow.py::solve_pfe`` sets it; the kernel's
+    twin keeps the default).  Returns ``(vr, vi, ir, ii, diff, it)``: the bus
     voltages and currents ``[n, B]`` of the last accepted point, its
     mismatch inf-norm ``[B]`` and the chord + NR iterations ``[B]`` int32.
     Lanes stop as the kernel's do; the loops end once no lane is active.
@@ -195,9 +210,12 @@ def nr_core_plain(Yre, Yim, J0inv, p, q, *, x_tol, max_iter, chord_iters, pivot=
             if not bool(active.any()):
                 break
             F = state[6]
-            dx = torch.zeros_like(F)
-            for j in range(2 * m):
-                dx = dx + J0inv[:, j : j + 1] * F[j]
+            if chord_matmul:
+                dx = chord_product(J0inv, F)
+            else:
+                dx = torch.zeros_like(F)
+                for j in range(2 * m):
+                    dx = dx + J0inv[:, j : j + 1] * F[j]
             state = tuple(step(active, state[0], state[1], dx, state))
             it = it + active.to(torch.int32)
         bad = ~torch.isfinite(state[-1]) | (state[-1] > diff0)  # worsened: restart flat

@@ -13,8 +13,10 @@ The JAX package's XLA solver and the body of its dense-NR kernel compute the
 same iteration, so one plain solver serves both here: :func:`solve_pfe` runs
 the dense-NR kernel's plain twin
 (:func:`~gym_anm_tpu_torch.ops.nr_cuda.nr_core_plain`) with partial
-pivoting, as the XLA solver pivots.  It stays plain PyTorch on every
-device: it is the counterpart of XLA code, not of a TPU kernel.
+pivoting, as the XLA solver pivots, and with each chord step as one
+``J0inv @ F`` product (TF32 off), as the XLA solver's chord step is one
+``jnp.dot``.  It stays plain PyTorch on every device: it is the
+counterpart of XLA code, not of a TPU kernel.
 
 The slack bus is index 0 with its voltage pinned at 1 + 0j.
 """
@@ -118,6 +120,7 @@ def solve_pfe(Y_re, Y_im, p, q, x_tol=1e-5, max_iter=100, method="scan", chord_i
         J0inv = torch.as_tensor(J0inv, device=p.device).to(p.dtype)
     warm = None if init is None else warm_init_theta_vm(init[0], init[1], p.shape[1], p.dtype)[:2]
     vr, vi, _, _, diff, n_iter = nr_core_plain(
-        Y_re, Y_im, J0inv, p.T, q.T, x_tol=x_tol, max_iter=max_iter, chord_iters=chord, pivot=True, init=warm
+        Y_re, Y_im, J0inv, p.T, q.T, x_tol=x_tol, max_iter=max_iter, chord_iters=chord, pivot=True, init=warm,
+        chord_matmul=True,
     )
     return vr.T, vi.T, diff, n_iter, diff <= x_tol

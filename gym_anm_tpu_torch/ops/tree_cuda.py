@@ -480,14 +480,15 @@ def warm_point(ds: DeviceSchedule, v_re, v_im):
     return th.contiguous(), vm.contiguous()
 
 
-def solve_pfe_tree(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None):
+def solve_pfe_tree(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None, plain=False):
     """Batched tree-NR solve.
 
     ``p, q``: ``[B, m]`` non-slack bus injections in bus order (1..n-1).
     ``init`` optionally warm-starts from previous bus voltages ``(v_re
     [B, n], v_im [B, n])`` with the per-lane best-of-{warm, flat} guard.
     A CUDA tensor launches the kernel (float32 only); a CPU tensor runs the
-    plain version.  Returns ``(v_re [B, n], v_im [B, n], diff [B],
+    plain version, and so does any tensor with ``plain=True`` (the
+    ``"tree_xla"`` ablation).  Returns ``(v_re [B, n], v_im [B, n], diff [B],
     n_iter [B], converged [B])`` batch-first, like the JAX solvers.
     """
     B = p.shape[0]
@@ -497,7 +498,7 @@ def solve_pfe_tree(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None)
     pT = torch.cat([p.T, zero], dim=0)[ds.slot_sel].contiguous()
     qT = torch.cat([q.T, zero], dim=0)[ds.slot_sel].contiguous()
     warm = None if init is None else warm_point(ds, init[0].to(dt), init[1].to(dt))
-    solver = solve_pfe_tree_cuda if p.is_cuda else solve_pfe_tree_plain
+    solver = solve_pfe_tree_cuda if p.is_cuda and not plain else solve_pfe_tree_plain
     vr_s, vi_s, diff, n_iter = solver(ds, pT, qT, x_tol=x_tol, max_iter=max_iter, init=warm)
     # Slot order -> bus order with the pinned slack row.
     vr = torch.cat([torch.ones((1, B), dtype=dt, device=dev), vr_s[ds.busm1_slot]], dim=0)

@@ -3,10 +3,11 @@
 The counterpart of ``gym_anm_tpu.rl.ppo``: rollouts are stepped through
 :class:`~gym_anm_tpu_torch.envs.batched.BatchedEnv` with pool auto-reset,
 advantages come from a reverse GAE pass, and updates are minibatched
-clipped-PPO epochs.  The model is a tanh-squashed diagonal-Gaussian actor
-and a value critic on a shared tanh MLP, with observations normalised by the
-observation bounds and actions mapped affinely onto [action_low,
-action_high].  The optimiser is ``optax.chain(clip_by_global_norm, adam)``
+clipped-PPO epochs, on one device or data-parallel over a mesh of ranks
+(``mesh=``, :mod:`gym_anm_tpu_torch.parallel`).  The model is a
+tanh-squashed diagonal-Gaussian actor and a value critic on a shared tanh
+MLP, with observations normalised by the observation bounds and actions
+mapped affinely onto [action_low, action_high].  The optimiser is ``optax.chain(clip_by_global_norm, adam)``
 as the JAX package has it.  The products of the MLP are plain
 ``nn.Linear`` layers: the JAX package computes them outside any Pallas
 kernel.
@@ -23,6 +24,7 @@ from torch import nn
 
 from ..checkpoint import load_pytree, save_pytree
 from ..envs.batched import BatchedEnv
+from ..parallel import sharding
 from ._nn import (
     adam_state, clip_by_global_norm_, dense, flax_dense, load_adam_state, obs_norm_tables, squashed_logp,
 )
@@ -117,24 +119,42 @@ class PPOTrainer:
     outputs.  ``generator`` (default: one on the core's device seeded with
     ``seed``) draws every sample of the trainer and its default env; the
     weights are initialised from ``seed``.
+
+    ``mesh`` (a :func:`~gym_anm_tpu_torch.parallel.sharding.make_mesh`)
+    trains data-parallel, one rank a card, the core on the rank's device:
+    ``batch_size`` is global and each rank steps ``batch_size / world``
+    lanes (``self.B``) with its own generator, seeded from ``(seed,
+    rank)``.  The parameters are broadcast from rank 0 at construction
+    (Adam's state is still empty then); every update averages the gradients
+    over the ranks before the clip and Adam, and normalizes advantages with
+    the global minibatch's mean and standard deviation, so a dp update
+    equals the one-device update on the union of the ranks' minibatches.
+    Metrics are means over the ranks.
     """
 
     def __init__(self, core, batch_size: int, config: Optional[PPOConfig] = None, seed: int = 0, env=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         self.cfg = config or PPOConfig()
         self.core = core
-        self.B = int(batch_size)
+        self.mesh = mesh
+        world = 1 if mesh is None else mesh.size()
+        if int(batch_size) % world:
+            raise ValueError("batch_size %d does not split evenly over %d ranks" % (batch_size, world))
+        self.B = int(batch_size) // world
         self.device, self.dtype = core.device, core.dtype
         if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
+            rank_seed = seed if mesh is None else sharding.rank_seed(seed, mesh.get_local_rank())
+            generator = torch.Generator(device=self.device).manual_seed(rank_seed)
         self.generator = generator
-        self.env = env if env is not None else BatchedEnv(core, batch_size, generator=generator, auto_reset=True)
+        self.env = env if env is not None else BatchedEnv(core, self.B, generator=generator, auto_reset=True)
         t = lambda a: torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
         self.lo, self.hi = t(core.action_low), t(core.action_high)
         self.obs_centre, self.obs_scale = obs_norm_tables(core, self.dtype, self.device)
         self.model = ActorCritic(
             core.obs_gather.n, core.action_n, self.cfg.hidden, torch.Generator().manual_seed(seed)
         ).to(self.device, self.dtype)
+        if mesh is not None:
+            sharding.broadcast_params_([self.model], mesh)
         self.opt = torch.optim.Adam(self.model.parameters(), lr=self.cfg.lr, eps=1e-8)
 
     # ------------------------------------------------------------------
@@ -189,18 +209,32 @@ class PPOTrainer:
         obs, u, logp_old, adv, ret = batch
         logp, entropy, value = self._policy_logp(obs, u)
         ratio = torch.exp(logp - logp_old)
-        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        mean, std = self._adv_stats(adv)
+        adv_n = (adv - mean) / (std + 1e-8)
         pg = -torch.minimum(ratio * adv_n, torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n).mean()
         vf = 0.5 * torch.mean((value - ret) ** 2)
         ent = entropy.mean()
         return pg + cfg.vf_coef * vf - cfg.ent_coef * ent, (pg, vf, ent)
 
+    def _adv_stats(self, adv):
+        """The minibatch's advantage mean and (population) standard
+        deviation; with a mesh, over the union of the ranks' minibatches
+        (equal sizes), in two passes as on one device."""
+        if self.mesh is None:
+            return adv.mean(), adv.std(correction=0)
+        mean = sharding.all_reduce_mean_(adv.mean(), self.mesh)
+        var = sharding.all_reduce_mean_(torch.mean((adv - mean) ** 2), self.mesh)
+        return mean, torch.sqrt(var)
+
     def update(self, batch):
-        """One optimiser step on a minibatch: the loss's gradient, clipped
-        by its global norm, then Adam.  Returns the loss (before the step)."""
+        """One optimiser step on a minibatch: the loss's gradient (averaged
+        over the ranks with a mesh), clipped by its global norm, then Adam.
+        Returns the loss (before the step)."""
         self.opt.zero_grad(set_to_none=True)
         loss, _ = self.loss(batch)
         loss.backward()
+        if self.mesh is not None:
+            sharding.average_grads_(list(self.model.parameters()), self.mesh)
         clip_by_global_norm_(list(self.model.parameters()), self.cfg.max_grad_norm)
         self.opt.step()
         return loss.detach()
@@ -222,12 +256,12 @@ class PPOTrainer:
             perm = torch.randperm(n, generator=self.generator, device=self.device)
             for idx in perm[: mb * cfg.minibatches].reshape(cfg.minibatches, mb):
                 losses.append(self.update(tuple(d[idx] for d in data)))
-        metrics = {
-            "loss": torch.stack(losses).mean(),
-            "mean_reward": traj.reward.mean(),
-            "terminated_frac": traj.terminated.float().mean(),
-        }
-        return es, metrics
+        metrics = torch.stack(
+            [torch.stack(losses).mean(), traj.reward.mean(), traj.terminated.to(self.dtype).mean()]
+        )
+        if self.mesh is not None:
+            sharding.all_reduce_mean_(metrics, self.mesh)
+        return es, dict(zip(("loss", "mean_reward", "terminated_frac"), metrics))
 
     # ------------------------------------------------------------------
     def init_envs(self):

@@ -5,7 +5,9 @@ buffer, a tanh-squashed Gaussian actor, twin Q critics with
 polyak-averaged targets, and an auto-tuned entropy temperature.  One
 iteration runs ``collect_steps`` batched environment steps (storing ``B``
 transitions each, with pool auto-reset) and then ``grad_steps``
-critic / actor / temperature updates.
+critic / actor / temperature updates.  With ``mesh=``
+(:mod:`gym_anm_tpu_torch.parallel`) it trains data-parallel, one rank a
+card.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 
 from ..checkpoint import load_pytree, save_pytree
 from ..envs.batched import BatchedEnv
+from ..parallel import sharding
 from ._nn import adam_state, dense, flax_dense, load_adam_state, obs_norm_tables, squashed_logp
 
 
@@ -146,20 +149,37 @@ class SACTrainer:
     actions [B, A], generator, fresh=None)``.  ``generator`` (default: one
     on the core's device seeded with ``seed``) draws every sample; the
     weights are initialised from ``seed``.
+
+    ``mesh`` (a :func:`~gym_anm_tpu_torch.parallel.sharding.make_mesh`)
+    trains data-parallel, one rank a card, the core on the rank's device:
+    ``batch_size``, ``buffer_capacity`` and ``train_batch`` are global and
+    each rank holds its share (``self.B`` lanes with their own generator,
+    seeded from ``(seed, rank)``, and a ring of its own lanes' transitions,
+    as the JAX package shards the ring over dp).  The weights and the
+    temperature are broadcast from rank 0 at construction; the critic's and
+    the actor's gradients and the temperature's are averaged over the ranks
+    before each step, so a dp update equals the one-device update on the
+    union of the ranks' samples.  Metrics are means over the ranks.
     """
 
     def __init__(self, core, batch_size: int, config: Optional[SACConfig] = None, seed: int = 0, env=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         self.cfg = cfg = config or SACConfig()
         self.core = core
-        self.B = int(batch_size)
-        if cfg.buffer_capacity % self.B:
+        self.mesh = mesh
+        world = 1 if mesh is None else mesh.size()
+        if int(batch_size) % world or cfg.buffer_capacity % world or cfg.train_batch % world:
+            raise ValueError("batch_size, buffer_capacity and train_batch must split evenly over %d ranks" % world)
+        self.B = int(batch_size) // world
+        self.capacity, self.train_batch = cfg.buffer_capacity // world, cfg.train_batch // world
+        if self.capacity % self.B:
             raise ValueError("buffer_capacity must be a multiple of batch_size (aligned ring writes)")
         self.device, self.dtype = core.device, core.dtype
         if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
+            rank_seed = seed if mesh is None else sharding.rank_seed(seed, mesh.get_local_rank())
+            generator = torch.Generator(device=self.device).manual_seed(rank_seed)
         self.generator = generator
-        self.env = env if env is not None else BatchedEnv(core, batch_size, generator=generator, auto_reset=True)
+        self.env = env if env is not None else BatchedEnv(core, self.B, generator=generator, auto_reset=True)
         t = lambda a: torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
         self.lo, self.hi = t(core.action_low), t(core.action_high)
         self.obs_centre, self.obs_scale = obs_norm_tables(core, self.dtype, self.device)
@@ -169,15 +189,19 @@ class SACTrainer:
         to = lambda m: m.to(self.device, self.dtype)
         self.actor = to(Actor(obs_n, act_n, cfg.hidden, init))
         self.critic = to(TwinQ(obs_n, act_n, cfg.hidden, init))
-        self.target = copy.deepcopy(self.critic).requires_grad_(False)
         self.log_alpha = nn.Parameter(torch.tensor(cfg.init_log_alpha, dtype=self.dtype, device=self.device))
+        if mesh is not None:
+            sharding.broadcast_params_([self.actor, self.critic], mesh)
+            with torch.no_grad():
+                sharding.broadcast_(self.log_alpha.data, mesh)
+        self.target = copy.deepcopy(self.critic).requires_grad_(False)
         self.opt_actor = torch.optim.Adam(self.actor.parameters(), lr=cfg.lr, eps=1e-8)
         self.opt_critic = torch.optim.Adam(self.critic.parameters(), lr=cfg.lr, eps=1e-8)
         self.opt_alpha = torch.optim.Adam([self.log_alpha], lr=cfg.lr, eps=1e-8)
         self.target_entropy = -float(act_n)
 
     def empty_replay(self) -> Replay:
-        C, obs_n, act_n = self.cfg.buffer_capacity, self.core.obs_gather.n, self.core.action_n
+        C, obs_n, act_n = self.capacity, self.core.obs_gather.n, self.core.action_n
         z = lambda *shape: torch.zeros(shape, dtype=self.dtype, device=self.device)
         return Replay(
             obs=z(C, obs_n), action_u=z(C, act_n), reward=z(C), next_obs=z(C, obs_n),
@@ -205,7 +229,7 @@ class SACTrainer:
     def _store_chunk(self, rb: Replay, obs, u, reward, next_obs, terminated) -> Replay:
         """Write a ``[B, ...]`` chunk at the ring position (capacity % B ==
         0, so a chunk never straddles the wrap point)."""
-        C = self.cfg.buffer_capacity
+        C = self.capacity
         at = rb.ptr % C
         for buf, x in zip(rb[:5], (obs, u, reward, next_obs, terminated)):
             buf[at : at + self.B] = x
@@ -259,27 +283,36 @@ class SACTrainer:
         return torch.mean(alpha * logp - torch.minimum(q1, q2)), logp
 
     def grad_update(self, rb: Replay):
-        """One critic, actor and temperature update on a uniform sample of
-        the buffer, then polyak averaging.  Returns ``(critic_loss,
-        actor_loss, q_mean)``."""
-        cfg = self.cfg
-        idx = torch.randint(0, max(rb.size, 1), (cfg.train_batch,), generator=self.generator, device=self.device)
-        batch = tuple(x[idx] for x in rb[:5])
+        """One :meth:`update` on a uniform sample of ``train_batch`` (this
+        rank's share) transitions of the buffer."""
+        idx = torch.randint(0, max(rb.size, 1), (self.train_batch,), generator=self.generator, device=self.device)
+        return self.update(tuple(x[idx] for x in rb[:5]))
 
-        c_loss, q1, _, _ = self.critic_loss(batch)
-        self.opt_critic.zero_grad(set_to_none=True)
-        c_loss.backward()
-        self.opt_critic.step()
+    def _step(self, opt, loss, params):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if self.mesh is not None:
+            sharding.average_grads_(params, self.mesh)
+        opt.step()
+
+    def update(self, batch, eps_next=None, eps=None):
+        """One critic, actor and temperature update on ``batch = (obs, u,
+        reward, next_obs, done)``, then polyak averaging; ``eps_next`` and
+        ``eps`` are the critic's and the actor's pre-squash noise (drawn when
+        not given).  Returns ``(critic_loss, actor_loss, q_mean)``."""
+        cfg = self.cfg
+        c_loss, q1, _, _ = self.critic_loss(batch, eps_next)
+        self._step(self.opt_critic, c_loss, list(self.critic.parameters()))
 
         # The actor's loss reads the updated critics and the current alpha.
-        a_loss, logp = self.actor_loss(batch[0])
-        self.opt_actor.zero_grad(set_to_none=True)
-        a_loss.backward()
-        self.opt_actor.step()
+        a_loss, logp = self.actor_loss(batch[0], eps)
+        self._step(self.opt_actor, a_loss, list(self.actor.parameters()))
 
         # d/d(log_alpha) of -log_alpha * (mean logp + H_target), no gradient
         # through logp.
         self.log_alpha.grad = -(logp.detach().mean() + self.target_entropy).reshape(())
+        if self.mesh is not None:
+            sharding.all_reduce_mean_(self.log_alpha.grad, self.mesh)
         self.opt_alpha.step()
 
         with torch.no_grad():
@@ -292,15 +325,14 @@ class SACTrainer:
         ``grad_steps`` updates.  Returns ``(es, rb, obs, metrics)``."""
         es, rb, obs, (rewards, terms) = self.collect(es, rb, obs, uniform=False)
         c_losses, a_losses, q_means = zip(*(self.grad_update(rb) for _ in range(self.cfg.grad_steps)))
-        metrics = {
-            "critic_loss": torch.stack(c_losses).mean(),
-            "actor_loss": torch.stack(a_losses).mean(),
-            "q_mean": torch.stack(q_means).mean(),
-            "alpha": torch.exp(self.log_alpha.detach()),
-            "mean_reward": rewards.mean(),
-            "terminated_frac": terms.float().mean(),
-        }
-        return es, rb, obs, metrics
+        metrics = torch.stack([
+            torch.stack(c_losses).mean(), torch.stack(a_losses).mean(), torch.stack(q_means).mean(),
+            rewards.mean(), terms.to(self.dtype).mean(),
+        ])
+        if self.mesh is not None:
+            sharding.all_reduce_mean_(metrics, self.mesh)
+        names = ("critic_loss", "actor_loss", "q_mean", "mean_reward", "terminated_frac")
+        return es, rb, obs, dict(zip(names, metrics), alpha=torch.exp(self.log_alpha.detach()))
 
     # ------------------------------------------------------------------
     def init_envs(self):

@@ -30,7 +30,11 @@ has only PyTorch:
   (``envs/single_core.py``) on the card against the CPU;
 * the MPC agents' batched float64 solve (dense and banded) on the card
   against the same solve on the CPU, and a dense agent closing the loop of
-  a B=64 ANM6Easy fleet through the tree kernel.
+  a B=64 ANM6Easy fleet through the tree kernel;
+* feeder141's chord-only ``hybrid`` and ``tree_xla`` paths on the card
+  against the committed reference, launching no kernel; the plain solver's
+  chord product runs without TF32 when TF32 is on globally and matches a
+  float64 product to float32 rounding; ``make_mesh`` over NCCL at world size 1.
 """
 
 import dataclasses
@@ -623,3 +627,80 @@ def test_cuda_mpc_closed_loop_through_the_tree_kernel():
         assert float(out.reward.mean()) > -5
         acts = agent.act_batch(out.state_vec, warm_start=True)
     assert tree_cuda.KERNEL_LAUNCHES - before >= 3
+
+
+def _launches():
+    return tree_cuda.KERNEL_LAUNCHES, nr_cuda.KERNEL_LAUNCHES, step_cuda.KERNEL_LAUNCHES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pf_method", ["hybrid", "tree_xla"])
+def test_cuda_feeder141_plain_paths_launch_no_kernel(pf_method):
+    """16 lanes, 4 steps of the feeder141 reference through a plain path in
+    float32 on the card, under the ``check.py`` rule with no termination
+    mismatch; no kernel launches."""
+    _need_cuda()
+    from gym_anm_tpu_torch.envs.feeder141 import make_core as feeder141_make_core
+
+    data = check.load_reference("feeder141")
+    core = feeder141_make_core(torch.float32, "cuda", pf_method=pf_method)
+    before = _launches()
+    sv, rw, tm = check.rollout_given(core, data["s0"][:16], data["actions"][:4, :16], data["vars"][:4, :16])
+    torch.cuda.synchronize()
+    assert _launches() == before
+    ref = {k: data[k][:4, :16] for k in ("state_vec", "reward", "terminated")}
+    res = check.compare_trajectories(ref, {"state_vec": sv.cpu().numpy(), "reward": rw.cpu().numpy(),
+                                           "terminated": tm.cpu().numpy()})
+    assert res["pass"] and res["term_mismatch_frac"] == 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_chord_product_runs_without_tf32():
+    """With TF32 switched on globally, the chord product and the plain
+    solver's chord steps still run in full float32 (a float64 product to
+    float32 rounding), and the global setting is left as it was."""
+    _need_cuda()
+    from gym_anm_tpu_torch.ops.power_flow import solve_pfe
+
+    g = _dense_grid("feeder33")
+    rng = np.random.default_rng(4)
+    F = torch.tensor(rng.uniform(-0.05, 0.05, (g.J0inv.shape[0], 256)).astype(np.float32), device="cuda")
+    exact = (g.J0inv.double() @ F.double()).float()
+    p, q = F[: g.spec.n_bus - 1].T.contiguous(), F[g.spec.n_bus - 1 :].T.contiguous()
+    kw = dict(method="hybrid", chord_iters=4, max_iter=0, J0inv=g.J0inv)
+    off = solve_pfe(g.Y_re, g.Y_im, p, q, **kw)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        torch.testing.assert_close(nr_cuda.chord_product(g.J0inv, F), exact, rtol=1e-5, atol=1e-6)
+        on = solve_pfe(g.Y_re, g.Y_im, p, q, **kw)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert bool(torch.isfinite(off[2]).all())
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_make_mesh_over_nccl_world_one(tmp_path):
+    _need_cuda()
+    import torch.distributed as dist
+
+    from gym_anm_tpu_torch.parallel import sharding
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(1)
+        assert mesh.size() == 1 and sharding.rank_device(mesh).type == "cuda"
+        x = torch.arange(8.0, device="cuda")
+        c0 = sharding.COLLECTIVES
+        local = sharding.shard_batch(x, mesh)
+        assert torch.equal(local, x) and torch.equal(sharding.gather_batch(local, mesh), x)
+        t = torch.full((3,), 2.0, device="cuda")
+        assert torch.equal(sharding.all_reduce_mean_(t, mesh), torch.full((3,), 2.0, device="cuda"))
+        assert sharding.COLLECTIVES - c0 == 2
+        with pytest.raises(ValueError, match="backend"):
+            sharding.make_mesh(device_type="cpu")
+    finally:
+        dist.destroy_process_group()

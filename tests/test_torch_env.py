@@ -261,9 +261,8 @@ def test_feeder141_hooks_and_refusals():
             f141_make_core(device="cpu", pf_method=method)
         with pytest.raises(ValueError, match="unsupported at 141 buses"):
             jax_f141_make_core(pf_method=method)
-    for method in ("hybrid", "xla_hybrid", "scan", "while"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            f141_make_core(device="cpu", pf_method=method)
+    for method in ("hybrid", "xla_hybrid", "scan", "while", "tree_xla"):
+        assert f141_make_core(device="cpu", pf_method=method).pf_method == method
     g = torch.Generator().manual_seed(0)
     es, out = core.reset(g, 16)
     assert not bool(out.failed.any()) and out.state_vec.shape == (16, core.state_n)

@@ -115,8 +115,9 @@ def test_dispatch_and_wrapper_refusals():
     bare = dataclasses.replace(g, step=None)
     assert resolve_solver_path(bare, "fused") == ("nr_kernel", "pallas")
     assert resolve_solver_path(bare, "fused_hybrid") == ("nr_kernel", "hybrid")
+    assert resolve_solver_path(g, "tree_xla") == ("tree_plain", "tree_xla")
     with pytest.raises(ValueError, match="pf_method"):
-        resolve_solver_path(g, "tree_xla")
+        resolve_solver_path(g, "chord")
     no_des = dataclasses.replace(spec, n_des=0)
     assert not step_cuda.fused_transition_supported(no_des)
     with pytest.raises(ValueError, match="storage"):

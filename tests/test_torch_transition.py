@@ -81,7 +81,7 @@ def test_transition_rejects_other_methods_and_meshed_grids():
     g, _ = _grids()
     args = {k: torch.tensor(v) for k, v in _set_points(4, 0).items()}
     with pytest.raises(ValueError, match="pf_method"):
-        transition(g, **args, pf_method="tree_xla")
+        transition(g, **args, pf_method="chord")
     meshed = dataclasses.replace(g, tree=None)
     with pytest.raises(ValueError, match="radial"):
         transition(meshed, **args)
@@ -96,7 +96,7 @@ def test_warm_start_only_on_the_tree_path():
 
     g, _ = _grids()
     args = {k: torch.tensor(v) for k, v in _set_points(8, 3).items()}
-    for method in ("tree", "pallas", "hybrid", "scan", "while", "xla_hybrid"):
+    for method in ("tree", "tree_xla", "pallas", "hybrid", "scan", "while", "xla_hybrid"):
         cold = transition(g, **args, pf_method=method, x_tol=1e-10)
         v_init = (cold.state.bus_v_re, cold.state.bus_v_im)
         warm = transition(g, **args, pf_method=method, x_tol=1e-10, v_init=v_init)
