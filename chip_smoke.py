@@ -95,15 +95,25 @@ the port's paths on the card, one JSON line per phase:
    ``scan`` at B=256 (4 steps), each with its peak device memory, a profile
    of 2 more steps (device events, busy ms and busy share a step) and the
    card's ``nvidia-smi`` line;
-11. parallel: ``parallel/dryrun.py::dryrun_multidevice`` over ``nccl`` on
-   every card of the machine, one spawned rank a card (three dp PPO steps,
-   a SAC collect and update, a sharded feeder33 fleet collect with no
-   collective, a sharded banded MPC solve equal to the unsharded one), then
-   in each rank an ANM6Easy ``tree`` rollout of its share of a global
-   B=4096: env-steps/s a rank, the tree kernel's launches (one a step) and
-   the collectives counted while stepping (none).  On a one-card machine
-   this is world size 1: it proves the NCCL path and the tree kernel under
-   it, not scaling.
+11. parallel: (a) ``parallel/dryrun.py::dryrun_multidevice`` over ``nccl``
+   on every card of the machine, one spawned rank a card, each joining
+   through ``parallel/launch.py::init_from_env``, on the JAX dry run's
+   mesh (``dp x tp``, tp 2 at an even count of 4 or more; on one card 1 x
+   1): three PPO steps with the torso split over tp (each rank's
+   parameters held against the unsharded update's), a SAC collect and
+   update, a sharded feeder33 fleet collect with no collective, a sharded
+   banded MPC solve equal to the unsharded one; then in each rank an
+   ANM6Easy ``tree`` rollout of its share of a global B=4096: env-steps/s a
+   rank, the tree kernel's launches (one a step) and the collectives counted
+   while stepping (none).  On a one-card machine this is world size 1: it
+   proves the NCCL path and the tree kernel under it, not scaling.  (b) The
+   same dry run over four gloo ranks on the host CPU (``dp 2 x tp 2``; CPU
+   time, not card time).  (c) ``scripts/multiproc_dist_torch.py``: two
+   simulated hosts of two gloo ranks, each stepping its own lanes, the
+   global mean reward from one ``all_reduce`` identical on every rank; over
+   ``nccl`` too with two cards or more.  (d)
+   ``scripts/scaling_bench_torch.py`` over 1..every card: a row a rank count
+   (env-steps/s, efficiency, the tree kernel's launches a step, the card).
 
 Every launch count is set to 0 just before a path runs and read just
 after, and the path's kernel must have run once per step.
@@ -153,7 +163,9 @@ PLAIN_PROFILE_STEPS = 2
 # The parallel phase's ANM6Easy rollout: the global batch, steps, steps a
 # timed segment.
 PARALLEL_B, PARALLEL_T, PARALLEL_SEG = 4096, 64, 16
-PARALLEL_TIMEOUT = 600.0
+# The gloo dry run on the host CPU: the JAX dry run's rule gives dp 2 x tp 2.
+PARALLEL_GLOO_RANKS = 4
+REPO = os.path.dirname(os.path.abspath(__file__))
 # The trainers' runs at the full batch: PPO iterations, SAC warm-up rounds
 # and iterations.
 TRAIN_B = 4096
@@ -689,7 +701,7 @@ def _parallel_rollout(mesh, global_B=PARALLEL_B):
 
     dev = sharding.rank_device(mesh)
     lanes = sharding.batch_sharding(mesh).lanes(global_B)
-    gen = torch.Generator(device=dev).manual_seed(sharding.rank_seed(0, mesh.get_local_rank()))
+    gen = torch.Generator(device=dev).manual_seed(sharding.rank_seed(0, sharding.dp_rank(mesh)))
     env = BatchedEnv(make_core(torch.float32, dev), lanes.stop - lanes.start, generator=gen)
     es, _ = env.reset()
     torch.cuda.synchronize(dev)
@@ -715,27 +727,76 @@ def _parallel_rollout(mesh, global_B=PARALLEL_B):
     }
 
 
+def run_script(name, *args, timeout):
+    """``scripts/<name>`` in a fresh interpreter; its JSON lines.  It fails
+    when the script fails or outlasts ``timeout`` (given a minute more than
+    the script's spawns have, so that they end their ranks first)."""
+    r = subprocess.run([sys.executable, "-u", os.path.join(REPO, "scripts", name), *args], capture_output=True,
+                       text=True, timeout=timeout, cwd=REPO)
+    if r.returncode != 0:
+        raise AssertionError("%s %s failed:\n%s\n%s" % (name, " ".join(args), r.stdout[-3000:], r.stderr[-3000:]))
+    return [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+
+
 def phase_parallel(smi):
-    """The dry run over NCCL on every card, one spawned rank a card, then
-    :func:`_parallel_rollout` in each rank."""
-    from gym_anm_tpu_torch.parallel.dryrun import dryrun_multidevice
+    """(a) The dry run over NCCL on every card, one spawned rank a card, on
+    the JAX dry run's ``dp x tp`` mesh, then :func:`_parallel_rollout` in
+    each rank; (b) the dry run over four gloo ranks on the host CPU (``dp 2
+    x tp 2``); (c) two simulated hosts of ranks stepping their own lanes
+    (``scripts/multiproc_dist_torch.py``) over gloo, and over NCCL with four
+    cards or more; (d) weak scaling over 1..every card
+    (``scripts/scaling_bench_torch.py``)."""
+    from gym_anm_tpu_torch.parallel.dryrun import RANKS_TIMEOUT, dryrun_multidevice, tp_for
 
     world = torch.cuda.device_count()
     t0 = time.perf_counter()
-    ranks = dryrun_multidevice(world, "nccl", extra=_parallel_rollout, timeout=PARALLEL_TIMEOUT)
+    ranks = dryrun_multidevice(world, "nccl", extra=_parallel_rollout)
     seconds = time.perf_counter() - t0
-    note = ("world size 1: proves the NCCL path and the tree kernel under it, not scaling" if world == 1
-            else "one rank a card")
+    note = ("world size 1, a 1 x 1 mesh: proves the NCCL path and the tree kernel under it, not scaling"
+            if world == 1 else "one rank a card")
     for r in ranks:
         roll = r.pop("extra")
-        emit({"phase": "parallel", "world": world, "seconds": seconds, "note": note, "card": smi, **r,
-              "rollout": roll})
+        emit({"phase": "parallel", "part": "a", "world": world, "mesh": {"dp": r["dp"], "tp": r["tp"]},
+              "seconds": seconds, "note": note, "card": smi, **r, "rollout": roll})
+        if (r["dp"], r["tp"]) != (world // tp_for(world), tp_for(world)):
+            raise AssertionError("rank %d: a %d x %d mesh on %d cards" % (r["rank"], r["dp"], r["tp"], world))
         if roll["launches"]["tree_nr"] != PARALLEL_T or roll["collectives_while_stepping"] != 0:
             raise AssertionError("rank %d: %d tree kernel launches over %d steps, %d collectives while stepping"
                                  % (r["rank"], roll["launches"]["tree_nr"], PARALLEL_T,
                                     roll["collectives_while_stepping"]))
         if not roll["finite"] or roll["gathered_B"] != PARALLEL_B or r["backend"] != "nccl":
             raise AssertionError("rank %d: the sharded rollout is not the global batch over nccl" % r["rank"])
+
+    t0 = time.perf_counter()
+    ranks = dryrun_multidevice(PARALLEL_GLOO_RANKS, "gloo")
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        emit({"phase": "parallel", "part": "b", "world": PARALLEL_GLOO_RANKS, "mesh": {"dp": r["dp"], "tp": r["tp"]},
+              "seconds": seconds, "note": "host CPU processes (gloo): CPU time, not card time", "card": "host CPU",
+              **r})
+        if (r["dp"], r["tp"]) != (2, 2) or r["device"] != "cpu":
+            raise AssertionError("rank %d: not a dp 2 x tp 2 mesh of CPU ranks" % r["rank"])
+
+    runs = [("gloo", "host CPU")]
+    if world >= 4:  # two hosts of two cards
+        runs.append(("nccl", smi))
+    for backend, card in runs:
+        t0 = time.perf_counter()
+        rows = run_script("multiproc_dist_torch.py", "--backend", backend, timeout=RANKS_TIMEOUT + 60)
+        emit({"phase": "parallel", "part": "c", "backend": backend, "seconds": time.perf_counter() - t0,
+              "card": card, "ranks": rows[:-1], **rows[-1]})
+        if not rows[-1]["multiprocess_ok"] or len({r["mean_reward"] for r in rows[:-1]}) != 1:
+            raise AssertionError("the simulated hosts disagree over %s: %s" % (backend, rows))
+        if backend == "nccl" and any(r["tree_nr_launches"] != r["steps"] for r in rows[:-1]):
+            raise AssertionError("a rank's rollout did not launch the tree kernel once a step: %s" % rows)
+
+    t0 = time.perf_counter()
+    spawns = 1 + int(np.log2(world))  # one a rank count: 1, 2, 4, ... cards
+    rows = run_script("scaling_bench_torch.py", timeout=RANKS_TIMEOUT * spawns + 60)
+    for row in rows:
+        emit({"phase": "parallel", "part": "d", "seconds": time.perf_counter() - t0, **row})
+    if [r["devices"] for r in rows][:1] != [1] or rows[0]["tree_nr_launches_a_step"] != 1.0 or rows[0]["card"] != smi:
+        raise AssertionError("the 1-rank scaling row did not step the tree kernel once a step on this card: %s" % rows)
 
 
 def check_finite(name, metrics, modules):

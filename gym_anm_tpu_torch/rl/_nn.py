@@ -11,6 +11,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.tensor import all_reduce_sum_tp_
+
 LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -44,12 +46,22 @@ def squashed_logp(eps, log_std, u):
     return torch.sum(-0.5 * (eps**2) - log_std - 0.5 * LOG_2PI - torch.log(1 - u**2 + 1e-6), dim=-1)
 
 
-def clip_by_global_norm_(params, max_norm: float):
+def clip_by_global_norm_(params, max_norm: float, sharded=(), tp_group=None):
     """Scale the gradients of ``params`` in place as
     ``optax.clip_by_global_norm`` does: unchanged while their global norm is
-    below ``max_norm``, else ``(g / norm) * max_norm``.  No host sync."""
+    below ``max_norm``, else ``(g / norm) * max_norm``.  No host sync.
+
+    ``sharded`` (a subset of ``params``) holds this rank's shards of
+    tensor-parallel parameters: their squares are summed over ``tp_group``
+    before the replicated ones are added, so every tp rank clips by the
+    whole model's norm."""
+    split = {id(p) for p in sharded}
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    norm_sq = sum(torch.sum(p.grad * p.grad) for p in params if p.grad is not None and id(p) not in split)
+    if split:
+        part = sum(torch.sum(p.grad * p.grad) for p in sharded if p.grad is not None)
+        norm_sq = all_reduce_sum_tp_(part, tp_group) + norm_sq
+    norm = torch.sqrt(norm_sq)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))

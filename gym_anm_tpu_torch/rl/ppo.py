@@ -4,7 +4,8 @@ The counterpart of ``gym_anm_tpu.rl.ppo``: rollouts are stepped through
 :class:`~gym_anm_tpu_torch.envs.batched.BatchedEnv` with pool auto-reset,
 advantages come from a reverse GAE pass, and updates are minibatched
 clipped-PPO epochs, on one device or data-parallel over a mesh of ranks
-(``mesh=``, :mod:`gym_anm_tpu_torch.parallel`).  The model is a
+(``mesh=``, :mod:`gym_anm_tpu_torch.parallel`), with the torso split over
+the mesh's ``tp`` dimension when it has one.  The model is a
 tanh-squashed diagonal-Gaussian actor and a value critic on a shared tanh
 MLP, with observations normalised by the observation bounds and actions
 mapped affinely onto [action_low, action_high].  The optimiser is ``optax.chain(clip_by_global_norm, adam)``
@@ -25,6 +26,7 @@ from torch import nn
 from ..checkpoint import load_pytree, save_pytree
 from ..envs.batched import BatchedEnv
 from ..parallel import sharding
+from ..parallel.tensor import ColumnParallelLinear, RowParallelLinear
 from ._nn import (
     adam_state, clip_by_global_norm_, dense, flax_dense, load_adam_state, obs_norm_tables, squashed_logp,
 )
@@ -35,9 +37,17 @@ LOG_2PI_E = float(np.log(2 * np.pi * np.e))
 class ActorCritic(nn.Module):
     """MLP actor-critic with a Gaussian policy head: ``hidden`` tanh layers,
     a mean head, a state-independent ``log_std`` (initialised to -0.5) and a
-    value head."""
+    value head.
 
-    def __init__(self, obs_n: int, action_n: int, hidden=(256, 256), generator: Optional[torch.Generator] = None):
+    On a ``mesh`` whose tp width is above 1, the first hidden layer is
+    column-parallel and the second row-parallel over the tp group
+    (:mod:`gym_anm_tpu_torch.parallel.tensor`, the layout of
+    ``__graft_entry__.py::_param_shardings``); the heads, ``log_std`` and any
+    further layer are replicated.  The layers are drawn in full and sliced,
+    so the sharded model holds the unsharded model's numbers."""
+
+    def __init__(self, obs_n: int, action_n: int, hidden=(256, 256), generator: Optional[torch.Generator] = None,
+                 mesh=None):
         super().__init__()
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         sizes = (obs_n,) + tuple(hidden)
@@ -45,6 +55,20 @@ class ActorCritic(nn.Module):
         self.mean = dense(sizes[-1], action_n, gen)
         self.log_std = nn.Parameter(torch.full((action_n,), -0.5))
         self.value = dense(sizes[-1], 1, gen)
+        self.tp_group = None
+        tp = 1 if mesh is None else sharding.tp_size(mesh)
+        if tp > 1:
+            if len(hidden) < 2:
+                raise ValueError("the tp layout splits two hidden layers: hidden=%s" % (tuple(hidden),))
+            rank, self.tp_group = sharding.tp_rank(mesh), sharding.tp_group(mesh)
+            self.torso[0] = ColumnParallelLinear(self.torso[0], tp, rank, self.tp_group)
+            self.torso[1] = RowParallelLinear(self.torso[1], tp, rank, self.tp_group)
+
+    def sharded_parameters(self) -> list:
+        """This rank's shards of the tp-split parameters (none without tp)."""
+        if self.tp_group is None:
+            return []
+        return [self.torso[0].weight, self.torso[0].bias, self.torso[1].weight]
 
     def forward(self, obs):
         x = obs
@@ -53,12 +77,15 @@ class ActorCritic(nn.Module):
         return self.mean(x), self.log_std, self.value(x)[..., 0]
 
 
-def params_from_flax(params_np, hidden) -> dict:
+def params_from_flax(params_np, hidden, tp: int = 1, tp_rank: int = 0) -> dict:
     """The :class:`ActorCritic` ``state_dict`` holding the weights of the
     JAX package's flax ``ActorCritic`` (its ``{"params": {...}}`` tree as
     NumPy arrays): ``Dense_i`` for the hidden layers, then the mean head,
     then the value head; a Dense ``kernel [in, out]`` becomes a ``weight
-    [out, in]``."""
+    [out, in]``.  With ``tp > 1``, the shards of tp rank ``tp_rank`` as
+    ``__graft_entry__.py::_param_shardings`` lays them out: ``Dense_0``'s
+    kernel columns and bias (``P(None, "tp")``, ``P("tp")``) and
+    ``Dense_1``'s kernel rows (``P("tp", None)``)."""
     p = params_np["params"]
     h = len(hidden)
     out = {"log_std": torch.as_tensor(np.asarray(p["log_std"]).copy())}
@@ -66,6 +93,19 @@ def params_from_flax(params_np, hidden) -> dict:
         out.update(flax_dense("torso.%d" % i, p["Dense_%d" % i]))
     out.update(flax_dense("mean", p["Dense_%d" % h]))
     out.update(flax_dense("value", p["Dense_%d" % (h + 1)]))
+    return tp_shard_state_dict(out, hidden, tp, tp_rank) if tp > 1 else out
+
+
+def tp_shard_state_dict(state: dict, hidden, tp: int, tp_rank: int) -> dict:
+    """An unsharded :class:`ActorCritic` ``state_dict`` cut to the shards of
+    tp rank ``tp_rank`` (the rest shared as is): ``torso.0``'s rows of its
+    weight and bias, ``torso.1``'s columns of its weight."""
+    k = hidden[0] // tp  # torso.0's outputs are torso.1's inputs
+    mine = slice(tp_rank * k, (tp_rank + 1) * k)
+    out = dict(state)
+    out["torso.0.weight"] = state["torso.0.weight"][mine].clone()
+    out["torso.0.bias"] = state["torso.0.bias"][mine].clone()
+    out["torso.1.weight"] = state["torso.1.weight"][:, mine].clone()
     return out
 
 
@@ -122,14 +162,17 @@ class PPOTrainer:
 
     ``mesh`` (a :func:`~gym_anm_tpu_torch.parallel.sharding.make_mesh`)
     trains data-parallel, one rank a card, the core on the rank's device:
-    ``batch_size`` is global and each rank steps ``batch_size / world``
-    lanes (``self.B``) with its own generator, seeded from ``(seed,
-    rank)``.  The parameters are broadcast from rank 0 at construction
-    (Adam's state is still empty then); every update averages the gradients
-    over the ranks before the clip and Adam, and normalizes advantages with
-    the global minibatch's mean and standard deviation, so a dp update
-    equals the one-device update on the union of the ranks' minibatches.
-    Metrics are means over the ranks.
+    ``batch_size`` is global and each dp coordinate steps ``batch_size /
+    dp`` lanes (``self.B``) with its own generator, seeded from ``(seed, dp
+    rank)``.  The parameters are broadcast from dp coordinate 0 at
+    construction (Adam's state is still empty then); every update averages
+    the gradients over the dp group before the clip and Adam, and
+    normalizes advantages with the global minibatch's mean and standard
+    deviation, so a dp update equals the one-device update on the union of
+    the ranks' minibatches.  On a ``dp x tp`` mesh the model's torso is
+    split over tp (:class:`ActorCritic`), the ranks of one dp coordinate
+    step the same lanes, and the clip's norm sums the shards' squares over
+    the tp group.  Metrics are means over the dp coordinates.
     """
 
     def __init__(self, core, batch_size: int, config: Optional[PPOConfig] = None, seed: int = 0, env=None,
@@ -137,13 +180,13 @@ class PPOTrainer:
         self.cfg = config or PPOConfig()
         self.core = core
         self.mesh = mesh
-        world = 1 if mesh is None else mesh.size()
+        world = 1 if mesh is None else sharding.dp_size(mesh)
         if int(batch_size) % world:
             raise ValueError("batch_size %d does not split evenly over %d ranks" % (batch_size, world))
         self.B = int(batch_size) // world
         self.device, self.dtype = core.device, core.dtype
         if generator is None:
-            rank_seed = seed if mesh is None else sharding.rank_seed(seed, mesh.get_local_rank())
+            rank_seed = seed if mesh is None else sharding.rank_seed(seed, sharding.dp_rank(mesh))
             generator = torch.Generator(device=self.device).manual_seed(rank_seed)
         self.generator = generator
         self.env = env if env is not None else BatchedEnv(core, self.B, generator=generator, auto_reset=True)
@@ -151,7 +194,7 @@ class PPOTrainer:
         self.lo, self.hi = t(core.action_low), t(core.action_high)
         self.obs_centre, self.obs_scale = obs_norm_tables(core, self.dtype, self.device)
         self.model = ActorCritic(
-            core.obs_gather.n, core.action_n, self.cfg.hidden, torch.Generator().manual_seed(seed)
+            core.obs_gather.n, core.action_n, self.cfg.hidden, torch.Generator().manual_seed(seed), mesh
         ).to(self.device, self.dtype)
         if mesh is not None:
             sharding.broadcast_params_([self.model], mesh)
@@ -228,14 +271,15 @@ class PPOTrainer:
 
     def update(self, batch):
         """One optimiser step on a minibatch: the loss's gradient (averaged
-        over the ranks with a mesh), clipped by its global norm, then Adam.
-        Returns the loss (before the step)."""
+        over the dp coordinates with a mesh), clipped by the whole model's
+        global norm, then Adam.  Returns the loss (before the step)."""
         self.opt.zero_grad(set_to_none=True)
         loss, _ = self.loss(batch)
         loss.backward()
         if self.mesh is not None:
             sharding.average_grads_(list(self.model.parameters()), self.mesh)
-        clip_by_global_norm_(list(self.model.parameters()), self.cfg.max_grad_norm)
+        clip_by_global_norm_(list(self.model.parameters()), self.cfg.max_grad_norm,
+                             self.model.sharded_parameters(), self.model.tp_group)
         self.opt.step()
         return loss.detach()
 

@@ -159,7 +159,11 @@ class SACTrainer:
     temperature are broadcast from rank 0 at construction; the critic's and
     the actor's gradients and the temperature's are averaged over the ranks
     before each step, so a dp update equals the one-device update on the
-    union of the ranks' samples.  Metrics are means over the ranks.
+    union of the ranks' samples.  Metrics are means over the ranks.  SAC is
+    data-parallel only, as in the JAX dry run: on a ``dp x tp`` mesh it
+    shards over the dp dimension (ranks, seeds and every collective are the
+    dp coordinate's and the dp group's), and the ranks of one dp coordinate
+    repeat the same work on replicated weights.
     """
 
     def __init__(self, core, batch_size: int, config: Optional[SACConfig] = None, seed: int = 0, env=None,
@@ -167,7 +171,7 @@ class SACTrainer:
         self.cfg = cfg = config or SACConfig()
         self.core = core
         self.mesh = mesh
-        world = 1 if mesh is None else mesh.size()
+        world = 1 if mesh is None else sharding.dp_size(mesh)
         if int(batch_size) % world or cfg.buffer_capacity % world or cfg.train_batch % world:
             raise ValueError("batch_size, buffer_capacity and train_batch must split evenly over %d ranks" % world)
         self.B = int(batch_size) // world
@@ -176,7 +180,7 @@ class SACTrainer:
             raise ValueError("buffer_capacity must be a multiple of batch_size (aligned ring writes)")
         self.device, self.dtype = core.device, core.dtype
         if generator is None:
-            rank_seed = seed if mesh is None else sharding.rank_seed(seed, mesh.get_local_rank())
+            rank_seed = seed if mesh is None else sharding.rank_seed(seed, sharding.dp_rank(mesh))
             generator = torch.Generator(device=self.device).manual_seed(rank_seed)
         self.generator = generator
         self.env = env if env is not None else BatchedEnv(core, self.B, generator=generator, auto_reset=True)

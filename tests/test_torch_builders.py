@@ -166,21 +166,38 @@ def _import_blocked(modules, blocked, extra=""):
     assert res.returncode == 0, res.stderr
 
 
+def _absolute_imports(path):
+    """The top-level package of every absolute import in ``path``."""
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def _port_scripts():
+    """The scripts and examples that drive the port."""
+    for d in ("scripts", "examples"):
+        for f in sorted(os.listdir(os.path.join(REPO, d))):
+            path = os.path.join(REPO, d, f)
+            if f.endswith(".py") and "gym_anm_tpu_torch" in open(path).read():
+                yield path
+
+
 def test_port_imports_no_jax():
     forbidden = ("jax", "jaxlib", "gym_anm_tpu", "flax", "optax")
     modules = []
     for path, mod in _port_modules():
         modules.append(mod)
-        for node in ast.walk(ast.parse(open(path).read())):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module]
-            for n in names:
-                assert n.split(".")[0] not in forbidden, (mod, n)
-                assert n.split(".")[0] != "gymnasium" or mod in GYMNASIUM_MODULES, (mod, n)
+        for n in _absolute_imports(path):
+            assert n not in forbidden, (mod, n)
+            assert n != "gymnasium" or mod in GYMNASIUM_MODULES, (mod, n)
     assert set(GYMNASIUM_MODULES) <= set(modules)
+    # The port's scripts and examples (an example may use Gymnasium).
+    scripts = list(_port_scripts())
+    assert len(scripts) >= 20
+    for path in scripts:
+        assert not set(_absolute_imports(path)) & set(forbidden), path
     # Every other module, and chip_smoke.py, imports with JAX and Gymnasium
     # made unimportable; the Gymnasium adapters import with JAX made
     # unimportable.
