@@ -34,6 +34,20 @@ the port's paths on the card, one JSON line per phase:
    compared with the committed host-float64 trajectories by
    ``check.compare_trajectories``, with the launch count of the kernel each
    path uses;
+4b. projection: each task's capability polytopes (ANM6Easy, feeder33,
+   feeder141) at B=4096 float32 through every form of
+   ``ops/projection.py`` (``scripts/proj_bench_torch.py::bench_task``: the
+   running minimum, the stacked form, box-slants): each form's CUDA-event
+   time a call, eager and from a CUDA graph (where the form can be
+   captured), its aten ops and device events a call, its peak memory, and
+   the form ``GridTensors.from_spec`` chose for the card.  The stacked form
+   must equal the running minimum bit for bit, box-slants be within 2e-5
+   with squared distances within 2e-5.  Then ANM6Easy ``tree`` steps (16)
+   from one reset state and one set of actions through each form in turn
+   (running minimum, stacked, stacked, running minimum): env-steps/s,
+   device events and busy ms a step; the two forms' final states, rewards
+   and flags must agree bit for bit, as must the warm-started ANM6Easy
+   ``pallas`` replay of the parity reference through each form;
 5. rollout: ``BatchedEnv(make_core(pf_method=...), 4096)`` for ANM6Easy
    through the tree, pallas and fused paths (one reset and three 64-step
    rollouts), for feeder33 through the fused and tree paths and for
@@ -41,7 +55,9 @@ the port's paths on the card, one JSON line per phase:
    warm-started for ANM6Easy through the tree and pallas paths (one reset
    and two 64-step rollouts) and for feeder33 through the hybrid path, and
    with auto-reset for ANM6Easy through the tree path in pool and in step
-   mode (reborn lanes must be live), with uniform random actions;
+   mode (reborn lanes must be live), with uniform random actions; each row
+   names the projection form and gives the device events a step of 2
+   profiled steps;
 6. train: ``PPOTrainer`` (3 iterations) and ``SACTrainer`` (2 warm-up
    rounds and 3 iterations) with their default configurations over
    ANM6Easy at B=4096 (the tree path, pool auto-reset): each iteration's
@@ -206,6 +222,18 @@ GYM_CHECK_B, GYM_CHECK_T = 64, 8
 GYM_SINGLE_T = 32
 GYM_REPLAY_STEPS = 4
 KERNEL_B = 4096
+# The projection phase: each task's polytopes at B=4096 through every form
+# (scripts/proj_bench_torch.py, timed runs of 10 calls, 3 trials: the
+# phase stays within ~30 s), box-slants' tolerance against the running
+# minimum (tests/test_pallas_step.py:109-120), and the ANM6Easy tree
+# rollouts of each form from one state and one set of actions, in the order
+# running_min, stacked, stacked, running_min (steps a rollout).
+PROJ_ENVS = ("anm6easy", "feeder33", "feeder141")
+PROJ_CALLS, PROJ_TRIALS = 10, 3
+BOX_SLANTS_ATOL = 2e-5
+PROJ_AB_ORDER = ("running_min", "stacked", "stacked", "running_min")
+PROJ_AB_T = 16
+PROJ_PROFILE_STEPS = 2
 # Grids of the tree-kernel check: (name, injection amplitude, x_tol);
 # feeder141 keeps the float32 mismatch-plateau tolerance of its task.
 TREE_GRIDS = (("anm6", 0.3, 1e-5), ("feeder33", 0.05, 1e-5), ("feeder141", 0.02, 3e-5))
@@ -592,6 +620,96 @@ def phase_parity(plain=False):
             raise AssertionError("the plain %s %s replay launched a kernel: %s" % (env, method, counts))
 
 
+def same_bits(a, b):
+    """Tensors equal bit for bit, pairwise (floats by their bit patterns)."""
+    view = lambda t: t.view(torch.int32 if t.dtype == torch.float32 else torch.int64) if t.is_floating_point() else t
+    return all(torch.equal(view(x), view(y)) for x, y in zip(a, b))
+
+
+def phase_projection(smi):
+    """Every projection form on each task's polytopes at B=4096 float32
+    (``scripts/proj_bench_torch.py``): the stacked form must equal the
+    running minimum bit for bit, box-slants within 2e-5 with equal squared
+    distances; then ANM6Easy ``tree`` steps of each form from the same state
+    and actions, and the warm ``pallas`` replay through each form, which
+    must agree bit for bit.  Reports the form ``GridTensors.from_spec``
+    chose for the card."""
+    import dataclasses
+
+    from gym_anm_tpu_torch import check
+    from gym_anm_tpu_torch.core.grid import projection_form
+    from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
+    from gym_anm_tpu_torch.envs.batched import BatchedEnv
+    from gym_anm_tpu_torch.ops.projection import LanesProjector
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import proj_bench_torch as bench
+
+    t_phase = time.perf_counter()
+    chosen = projection_form("cuda")
+    for env_name in PROJ_ENVS:
+        for row in bench.bench_task(env_name, KERNEL_B, trials=PROJ_TRIALS, loop=False, calls=PROJ_CALLS):
+            emit({"phase": "projection", **row, "default_form": chosen, "card": smi})
+            if row["form"] == "stacked" and not row["bit_identical"]:
+                raise AssertionError("the stacked projection differs from the running minimum: %s" % row)
+            if row["form"] == "box_slants" and not (row["max_abs_diff"] <= BOX_SLANTS_ATOL
+                                                     and row["max_abs_dist_diff"] <= BOX_SLANTS_ATOL):
+                raise AssertionError("box-slants is off the running minimum: %s" % row)
+
+    core = make_core(torch.float32, device="cuda")
+    if core.grid.projector.form != chosen:
+        raise AssertionError("make_core built the %r form, from_spec chose %r" % (core.grid.projector.form, chosen))
+    G = np.concatenate([np.asarray(core.spec.gen_G), np.asarray(core.spec.des_G)], axis=0)
+    env = BatchedEnv(core, ROLLOUT_B)
+    es0, _ = env.reset()
+    actions = [env.random_actions() for _ in range(PROJ_AB_T)]
+
+    def steps(es, acts):
+        for a in acts:
+            es, out = env.step(es, a)
+        return es, out
+
+    finals = {}
+    for form in PROJ_AB_ORDER:
+        core.grid = dataclasses.replace(core.grid, projector=LanesProjector(G, "cuda", torch.float32, form=form))
+        zero_counts()
+        (es, out), seconds = timed(lambda: steps(es0, actions))
+        counts = read_counts()
+        prof = profile(lambda: steps(es0, actions[:PROJ_PROFILE_STEPS]), PROJ_PROFILE_STEPS, None, None)
+        emit({"phase": "projection_rollout", "env": "anm6easy", "pf_method": "tree", "form": form, "B": ROLLOUT_B,
+              "T": PROJ_AB_T, "seconds": seconds, "env_steps_per_s": ROLLOUT_B * PROJ_AB_T / seconds,
+              "device_events_per_step": prof["cuda_events_per_unit"],
+              "device_busy_ms_per_step": prof["device_busy_ms_per_unit"],
+              "untraced_ms_per_step": prof["untraced_ms_per_unit"], "launches": counts, "card": smi})
+        if counts["tree_nr"] != PROJ_AB_T:
+            raise AssertionError("the %s rollout launched the tree kernel %d times" % (form, counts["tree_nr"]))
+        finals.setdefault(form, (es.state_vec, out.reward, out.terminated))
+    if not same_bits(finals["running_min"], finals["stacked"]):
+        raise AssertionError("the ANM6Easy tree steps differ between the projection forms")
+
+    # The warm-started replay (whose calibrated paths may part from the
+    # cold float64 reference on a tie) through both forms: bit for bit.
+    data = check.load_reference("anm6easy")
+    kw = dict(check.CHECK_CONFIG["anm6easy"]["methods"]["pallas"], warm_start=True)
+    core = check.task_make_core("anm6easy")(dtype=torch.float32, device="cuda", pf_method="pallas", **kw)
+    replays = {}
+    for form in ("running_min", "stacked"):
+        core.grid = dataclasses.replace(core.grid, projector=LanesProjector(G, "cuda", torch.float32, form=form))
+        replays[form] = check.rollout_given(core, data["s0"], data["actions"], data["vars"])
+        res = check.compare_trajectories(
+            {k: data[k] for k in ("state_vec", "reward", "terminated")},
+            dict(zip(("state_vec", "reward", "terminated"), (t.cpu().numpy() for t in replays[form]))),
+        )
+        emit({"phase": "projection_replay", "env": "anm6easy", "pf_method": "pallas", "warm_start": True,
+              "form": form, **res, "card": smi})
+        if not res["pass"]:
+            raise AssertionError("the warm pallas replay through %s failed: %s" % (form, res))
+    if not same_bits(replays["running_min"], replays["stacked"]):
+        raise AssertionError("the warm pallas replay differs between the projection forms")
+    emit({"phase": "projection", "part": "summary", "default_form": chosen,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+
+
 def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False, auto_reset=None):
     from gym_anm_tpu_torch import check
     from gym_anm_tpu_torch.envs.batched import BatchedEnv
@@ -633,8 +751,10 @@ def phase_rollout(env_name, pf_method, T, rollouts, warm_start=False, auto_reset
     if counts[kernel] < 1 + rollouts * T:
         raise AssertionError("the %s %s path launched %s %d times" % (env_name, pf_method, kernel, counts[kernel]))
     steady = float(np.median(seconds[1:]))
+    prof = profile(lambda: env.rollout(es, PROJ_PROFILE_STEPS), PROJ_PROFILE_STEPS, None, None)
     emit({
         "phase": "rollout", "env": env_name, "pf_method": pf_method, "warm_start": warm_start,
+        "projection_form": core.grid.projector.form, "device_events_per_step": prof["cuda_events_per_unit"],
         "auto_reset": auto_reset, "B": ROLLOUT_B, "T": T, "rollouts": rollouts, "reset_s": reset_s,
         "rollout_s": seconds, "env_steps_per_s": ROLLOUT_B * T / steady,
         # With auto-reset, the share of lane-steps that terminated (and were
@@ -1269,6 +1389,7 @@ def main() -> int:
             "tree_nr": phase_tree_vs_plain(ptxas), "nr_dense": phase_nr_vs_plain(), "step_fused": phase_step_vs_plain(),
         }
         phase_parity()
+        phase_projection(smi)
         runs = [(case, phase_rollout(*case)) for case in ROLLOUT_CASES]
         # Each kernel's launches on its ANM6Easy path without auto-reset,
         # cold and warm; K1 cold's on the main path of training.

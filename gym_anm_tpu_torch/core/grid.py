@@ -848,6 +848,16 @@ def spec_from_numpy(fields: dict) -> GridSpec:
     return GridSpec(**{k: np.asarray(fields[k]) if k in ARRAY_FIELDS else fields[k] for k in names})
 
 
+def projection_form(device) -> str:
+    """The projection form :meth:`GridTensors.from_spec` builds on
+    ``device`` (``ops/projection.py``; the forms agree bit for bit).  On the
+    card, the stacked form: measured faster there on every task, as the JAX
+    package chose its form per backend (``scripts/proj_bench_torch.py`` and
+    ``chip_smoke.py``'s projection phase; PERF.md).  Elsewhere, the running
+    minimum."""
+    return "stacked" if torch.device(device).type == "cuda" else "running_min"
+
+
 @dataclasses.dataclass(frozen=True)
 class GridTensors:
     """The arrays of a :class:`GridSpec` that the physics reads, on one
@@ -919,7 +929,7 @@ class GridTensors:
             device=device,
             dtype=dtype,
             dev_perm=torch.as_tensor(perm, device=device),
-            projector=LanesProjector(G_static, device, dtype),
+            projector=LanesProjector(G_static, device, dtype, form=projection_form(device)),
             tree=DeviceSchedule.from_spec(spec, device, dtype),
             J0inv=torch.as_tensor(J0inv, device=device).to(dtype),
             step=StepTables.from_spec(spec, device, dtype) if fused_transition_supported(spec) else None,

@@ -15,6 +15,10 @@ The counterpart of ``gym_anm_tpu.profiling``.  Two tools:
     Perfetto trace (``trace.json``) under a log directory, with the CUDA
     activity when a card is present.
 
+``count_aten_ops``
+    The aten operators a call dispatches, views excluded: on a card, an
+    upper bound on the kernels it launches (a host-bound step's cost).
+
 Example::
 
     counter = StepRateCounter(device="cuda")
@@ -33,7 +37,7 @@ import time
 
 import torch
 
-__all__ = ["StepRateCounter", "trace"]
+__all__ = ["StepRateCounter", "count_aten_ops", "trace"]
 
 
 class StepRateCounter:
@@ -111,3 +115,21 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def count_aten_ops(fn, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` and count the aten operators it
+    dispatches that are not views.  Returns ``(result, count)``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                _Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with _Count():
+        out = fn(*args, **kwargs)
+    return out, _Count.n

@@ -34,7 +34,9 @@ has only PyTorch:
 * feeder141's chord-only ``hybrid`` and ``tree_xla`` paths on the card
   against the committed reference, launching no kernel; the plain solver's
   chord product runs without TF32 when TF32 is on globally and matches a
-  float64 product to float32 rounding; ``make_mesh`` over NCCL at world size 1.
+  float64 product to float32 rounding; ``make_mesh`` over NCCL at world size 1;
+* the projection's stacked form equal to the running minimum bit for bit
+  on the card, box-slants within 2e-5, and the card's default form.
 """
 
 import dataclasses
@@ -704,3 +706,43 @@ def test_cuda_make_mesh_over_nccl_world_one(tmp_path):
             sharding.make_mesh(device_type="cpu")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["anm6", "feeder33", "feeder141"])
+def test_cuda_projection_forms(name, dtype):
+    """On the card the stacked projection equals the running minimum bit for
+    bit (NaN, infinite and empty-region lanes included) and the running
+    minimum on the CPU to rounding; box-slants is within 2e-5;
+    ``GridTensors.from_spec`` builds the card's chosen form."""
+    _need_cuda()
+    from gym_anm_tpu_torch.core.grid import POLY_ROW_P_CAP, POLY_ROW_P_FLOOR, projection_form
+    from gym_anm_tpu_torch.ops.projection import LanesProjector, project_box_slants_lanes
+
+    net = {"anm6": anm6_network, "feeder33": make_feeder_network(), "feeder141": make_multi_feeder_network()}[name]
+    spec, _ = build_grid(net, 0.25, 100, dtype=np.float64)
+    G = np.concatenate([spec.gen_G, spec.des_G], axis=0)
+    C, B = G.shape[0], 1000
+    rng = np.random.default_rng(3)
+    h = np.repeat(np.concatenate([spec.gen_h0, spec.des_h0], axis=0)[:, :, None], B, axis=2)
+    h[:, POLY_ROW_P_CAP] = np.where(rng.uniform(size=(C, B)) < 0.25, np.inf, rng.uniform(0.0, 0.6, (C, B)))
+    h[spec.n_gen :, POLY_ROW_P_FLOOR] = rng.uniform(0.0, 0.6, (spec.n_des, B))
+    h[spec.n_gen :, POLY_ROW_P_CAP, 6] = h[spec.n_gen :, POLY_ROW_P_FLOOR, 6] = -0.5  # empty regions
+    px, py = rng.uniform(-1.5, 1.5, (2, C, B))
+    px[:, 0], py[:, 1], px[:, 2], py[:, 3] = np.nan, np.nan, np.inf, -np.inf
+    args = [torch.tensor(a, dtype=dtype) for a in (px, py, h)]
+    card = [a.cuda() for a in args]
+    bits = lambda t: t.view(torch.int64 if dtype == torch.float64 else torch.int32)
+    x1, y1 = LanesProjector(G, "cuda", dtype)(*card)
+    x2, y2 = LanesProjector(G, "cuda", dtype, form="stacked")(*card)
+    assert torch.equal(bits(x1), bits(x2)) and torch.equal(bits(y1), bits(y2))
+    xc, yc = LanesProjector(G, "cpu", dtype)(*args)
+    fin = torch.isfinite(args[0]) & torch.isfinite(args[1])
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    torch.testing.assert_close(x2.cpu()[fin], xc[fin], rtol=0, atol=tol)
+    torch.testing.assert_close(y2.cpu()[fin], yc[fin], rtol=0, atol=tol)
+    xb, yb = project_box_slants_lanes(card[0], card[1], G, card[2])
+    torch.testing.assert_close(xb.cpu()[fin], xc[fin], rtol=0, atol=2e-5)
+    torch.testing.assert_close(yb.cpu()[fin], yc[fin], rtol=0, atol=2e-5)
+    assert GridTensors.from_spec(spec, "cuda", torch.float32).projector.form == projection_form("cuda")

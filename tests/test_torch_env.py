@@ -4,15 +4,23 @@ The same initial states, actions and internal variables (made with numpy)
 go through ``env_state_from_s0`` and ``step`` of both cores; the JAX PRNG
 streams cannot be reproduced, so the task hooks are checked for what they
 must give: ``next_vars`` exactly, and initial states on the profile tables
-and inside their bounds."""
+and inside their bounds.
+
+The feeder33 runs and feeder141's core constants and refusals are the JAX
+package's outputs recorded by ``scripts/gen_torch_test_refs.py`` in
+``tests/data/torch_refs_env.npz`` (their programs take minutes to compile);
+the ANM6Easy runs compare live."""
 
 import functools
+import hashlib
+import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.envs.anm6.anm6_easy import make_core as jax_make_core
 
@@ -22,6 +30,15 @@ from gym_anm_tpu_torch.envs.anm6.anm6_easy import _get_gen_time_series, _get_loa
 # Each pytest-xdist worker would otherwise run its own intra-op pool on every
 # core; one thread per worker keeps the suite from oversubscribing the CPU.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """NumPy's BLAS on one thread while this file runs, as torch's: beside
+    the suite's other workers an OpenBLAS pool on every core stalls each
+    call (building a feeder141 core took ~50x longer)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 
 def _inputs(core, B, seed):
@@ -154,24 +171,45 @@ def _jax_replay(jcore, s0, actions, vars_seq):
     return jax.lax.scan(body, es0, (actions, vars_seq))[1]
 
 
+REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_refs_env.npz")
+
+
+@functools.lru_cache(maxsize=None)
+def _refs():
+    with np.load(REFS) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _digest(*arrays):
+    """``scripts/gen_torch_test_refs.py::digest``."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a, dtype=np.float64)).tobytes())
+    return h.hexdigest()
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_trajectories(env):
     """The first ``T_STEPS`` steps of the committed reference inputs through
-    the JAX package's core for every run of ``JAX_RUNS[env]``, in float64,
-    compiled as one program (one compile a task instead of one a run)."""
+    the JAX package's core for every run of ``JAX_RUNS[env]``, in float64:
+    ANM6Easy's compiled as one program (one compile instead of one a run),
+    feeder33's read from the recorded reference."""
     from gym_anm_tpu_torch import check
-    from gym_anm_tpu.envs.feeder33 import make_core as jax_f33_make_core
 
-    jmake = {"anm6easy": jax_make_core, "feeder33": jax_f33_make_core}[env]
+    ref = check.load_reference(env)
+    args = [np.asarray(a, np.float64) for a in (ref["s0"], ref["actions"][:T_STEPS], ref["vars"][:T_STEPS])]
+    if env == "feeder33":
+        refs = _refs()
+        assert str(refs["feeder33/inputs_sha256"]) == _digest(*args), "re-run scripts/gen_torch_test_refs.py"
+        return {(m, w): [refs["feeder33/%s/%s" % (m, k)] for k in ("state_vec", "reward", "terminated")]
+                for m, w in JAX_RUNS[env]}
     cores = {}
     for method, warm in JAX_RUNS[env]:
-        cores[method, warm] = jmake(dtype=jnp.float64, pf_method=method, warm_start=warm)
+        cores[method, warm] = jax_make_core(dtype=jnp.float64, pf_method=method, warm_start=warm)
         if warm:
             cores[method, warm].x_tol = _warm_x_tol(method)
-    ref = check.load_reference(env)
-    args = [jnp.asarray(a, jnp.float64) for a in (ref["s0"], ref["actions"][:T_STEPS], ref["vars"][:T_STEPS])]
     run = jax.jit(lambda s0, a, v: {key: _jax_replay(c, s0, a, v) for key, c in cores.items()})
-    return {key: [np.asarray(x) for x in traj] for key, traj in run(*args).items()}
+    return {key: [np.asarray(x) for x in traj] for key, traj in run(*map(jnp.asarray, args)).items()}
 
 
 def _port_matches_jax(env, method, warm_start=False, atol=1e-7):
@@ -244,23 +282,21 @@ def test_feeder33_hooks():
 
 
 def test_feeder141_hooks_and_refusals():
-    from gym_anm_tpu.envs.feeder141 import make_core as jax_f141_make_core
-
     from gym_anm_tpu_torch.envs.feeder141 import make_core as f141_make_core
 
     core = f141_make_core(dtype=torch.float32, device="cpu")
-    jcore = jax_f141_make_core(dtype=jnp.float32)
+    # The JAX package's feeder141 core (float32) and its refusals, recorded.
+    j = {k[len("feeder141/"):]: v for k, v in _refs().items() if k.startswith("feeder141/")}
     assert core.spec.n_bus == 141 and core.pf_method == "tree" and core.grid.tree is not None
-    assert (core.max_iter, core.x_tol) == (jcore.max_iter, jcore.x_tol) == (18, 3e-5)
-    assert (core.state_n, core.action_n, core.K) == (jcore.state_n, jcore.action_n, jcore.K)
-    np.testing.assert_array_equal(core.action_low, np.asarray(jcore.action_low))
+    assert (core.max_iter, core.x_tol) == (int(j["max_iter"]), float(j["x_tol"])) == (18, 3e-5)
+    assert (core.state_n, core.action_n, core.K) == tuple(int(j[k]) for k in ("state_n", "action_n", "K"))
+    np.testing.assert_array_equal(core.action_low, j["action_low"])
     f64 = f141_make_core(dtype=torch.float64, device="cpu", warm_start=True)
-    assert f64.x_tol == jax_f141_make_core(dtype=jnp.float64).x_tol == 1e-5 and f64.warm_start
+    assert f64.x_tol == float(j["f64_x_tol"]) == 1e-5 and f64.warm_start
     for method in ("pallas", "fused", "fused_hybrid"):
         with pytest.raises(ValueError, match="unsupported at 141 buses"):
             f141_make_core(device="cpu", pf_method=method)
-        with pytest.raises(ValueError, match="unsupported at 141 buses"):
-            jax_f141_make_core(pf_method=method)
+        assert "unsupported at 141 buses" in str(j["refusal/" + method])
     for method in ("hybrid", "xla_hybrid", "scan", "while", "tree_xla"):
         assert f141_make_core(device="cpu", pf_method=method).pf_method == method
     g = torch.Generator().manual_seed(0)

@@ -8,7 +8,10 @@
   A current's angle is held where |I| >= 1e-4 p.u.: a bus without a device
   carries the power flow's residual current (up to its 1e-5 tolerance),
   whose angle moves by |dI| / |I| for a last-bit change dI.
-  ``Feeder33Env`` through 4 steps likewise.
+  ``Feeder33Env`` through 4 steps likewise, against the JAX episode
+  recorded by ``scripts/gen_torch_test_refs.py`` in
+  ``tests/data/torch_refs_gym_env.npz`` (its programs take a minute to
+  compile).
 * An episode driven into the terminal absorbing state
   (``tests/test_env.py``'s collapsing 2-bus env) agrees too.
 * ``Feeder141Env`` (port only: the JAX package's dense solver takes too
@@ -23,13 +26,16 @@ suite's long-running files have started.
 """
 
 import datetime as dt
+import json
+import os
 
 import numpy as np
+import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.envs.anm6.anm6_easy import ANM6Easy as JaxANM6Easy
 from gym_anm_tpu.envs.anm_env import ANMEnv as JaxANMEnv
-from gym_anm_tpu.envs.feeder33 import Feeder33Env as JaxFeeder33Env
 
 from gym_anm_tpu_torch.core.env_core import EnvCore
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import ANM6Easy
@@ -38,6 +44,16 @@ from gym_anm_tpu_torch.envs.feeder33 import Feeder33Env
 from gym_anm_tpu_torch.envs.feeder141 import Feeder141Env
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """NumPy's BLAS on one thread while this file runs, as torch's: beside
+    the suite's other workers an OpenBLAS pool on every core stalls each
+    call (building a feeder141 core took ~50x longer)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
 
 ATOL = 1e-8
 # Currents below this (p.u.) have no angle to hold (see the docstring).
@@ -145,6 +161,23 @@ def _assert_episodes_agree(rows, jrows):
                 np.testing.assert_allclose(row[k], jrow[k], rtol=0, atol=ATOL, err_msg="%s %d" % (k, t))
 
 
+def _recorded_episode(name):
+    """A JAX episode as ``scripts/gen_torch_test_refs.py`` records it, in
+    the rows :func:`_episode` gives, and its actions."""
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_refs_gym_env.npz")) as z:
+        actions, rows = z[name + "/actions"], json.loads(str(z[name + "/episode"]))
+    key = lambda i: tuple(i) if isinstance(i, list) else i  # a branch's ID is a (from, to) tuple
+    for row in rows:
+        (state, cur) = row["snap"]
+        row["snap"] = ({q: {u: {key(i): x for i, x in d} for u, d in v} for q, v in state},
+                       {kind: {key(i): complex(re, im) for i, re, im in c} for kind, c in cur})
+        row["obs"] = np.asarray(row["obs"])
+        row["date"] = dt.datetime.fromisoformat(row["date"])
+        if "state" in row:
+            row["state"] = np.asarray(row["state"])
+    return actions, rows
+
+
 def _actions(space, n, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.uniform(space.low, space.high) for _ in range(n)]
@@ -162,9 +195,11 @@ def test_anm6easy_matches_jax():
 
 
 def test_feeder33_matches_jax():
-    env, jenv = Feeder33Env(seed=1, device="cpu"), JaxFeeder33Env(seed=1)
+    env = Feeder33Env(seed=1, device="cpu")
     actions = _actions(env.action_space, 4, seed=1)
-    _assert_episodes_agree(_episode(env, actions, seed=5), _episode(jenv, actions, seed=5))
+    jactions, jrows = _recorded_episode("feeder33")  # JaxFeeder33Env(seed=1), the same actions
+    np.testing.assert_array_equal(np.stack(actions), jactions, err_msg="re-run scripts/gen_torch_test_refs.py")
+    _assert_episodes_agree(_episode(env, actions, seed=5), jrows)
 
 
 def test_absorbing_episode_matches_jax():

@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from jax.experimental.pallas import tpu as pltpu
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -47,6 +48,16 @@ from gym_anm_tpu_torch.ops.power_flow import warm_init_theta_vm
 # Each pytest-xdist worker would otherwise run its own intra-op pool on every
 # core; one thread per worker keeps the suite from oversubscribing the CPU.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """NumPy's BLAS on one thread while this file runs, as torch's: beside
+    the suite's other workers an OpenBLAS pool on every core stalls each
+    call (building a feeder141 core took ~50x longer)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
 
 GRIDS = {
     "anm6": (anm6_network, jax_anm6_network, 0.3),

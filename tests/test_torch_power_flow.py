@@ -4,14 +4,19 @@
 against ``gym_anm_tpu.ops.power_flow.solve_pfe`` in float64 on the ANM6 and
 feeder33 grids, from injections made with numpy: identical iteration counts
 and convergence flags, V to 1e-9; warm-started (``init=``) on ANM6 too.
-Also the host builder ``flat_start_jacobian_inv_np`` (a copy)."""
+The feeder33 solves are the JAX package's recorded by
+``scripts/gen_torch_test_refs.py`` in ``tests/data/torch_refs_power_flow.npz``
+(their program takes half a minute to compile); ANM6's run live.  Also the
+host builder ``flat_start_jacobian_inv_np`` (a copy)."""
 
 import functools
+import os
 
 import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.core.grid import build_grid as jax_build_grid
 from gym_anm_tpu.envs.anm6.network import network as jax_anm6_network
@@ -30,6 +35,16 @@ from gym_anm_tpu_torch.ops.power_flow import flat_start_jacobian_inv_np, solve_p
 # Each pytest-xdist worker would otherwise run its own intra-op pool on every
 # core; one thread per worker keeps the suite from oversubscribing the CPU.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """NumPy's BLAS on one thread while this file runs, as torch's: beside
+    the suite's other workers an OpenBLAS pool on every core stalls each
+    call (building a feeder141 core took ~50x longer)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
 
 GRIDS = {
     "anm6": (anm6_network, jax_anm6_network, 0.3),
@@ -79,8 +94,13 @@ def _warm_voltages(name):
 def _jax_solves(name):
     """The JAX package's solves of every method on one grid (and, on ANM6,
     the warm-started ones, keyed ``method + "-warm"``), compiled as one
-    program (one compile instead of one a method)."""
+    program (one compile instead of one a method); feeder33's as recorded."""
     _, jspec, p, q = _case_f64(name)
+    if name == "feeder33":
+        with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_refs_power_flow.npz")) as z:
+            np.testing.assert_array_equal(p, z["feeder33/p"], err_msg="re-run scripts/gen_torch_test_refs.py")
+            np.testing.assert_array_equal(q, z["feeder33/q"], err_msg="re-run scripts/gen_torch_test_refs.py")
+            return {m: [z["feeder33/%s/%d" % (m, i)] for i in range(5)] for m in METHODS}
     warm = WARM_METHODS if name == "anm6" else ()
 
     def run(Yr, Yi, p, q, v0):

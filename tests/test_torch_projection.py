@@ -3,21 +3,33 @@
 
 Inputs are the ANM6 generator and storage capability polytopes with random
 dynamic rows (potential cap, SoC charge/discharge caps) and random points
-both inside and outside them, made from numpy seeds."""
+both inside and outside them, made from numpy seeds.  The JAX package's
+projections of these inputs are recorded by ``scripts/gen_torch_test_refs.py``
+in ``tests/data/torch_refs_projection.npz``."""
 
 import functools
+import hashlib
+import os
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 import torch
-
-from gym_anm_tpu.ops.projection import project_polytope, project_polytope_lanes as jax_project_lanes
+from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch.core.grid import POLY_ROW_P_CAP, POLY_ROW_P_FLOOR, build_grid
 from gym_anm_tpu_torch.envs.anm6.network import network
 from gym_anm_tpu_torch.ops.projection import project_polytope_lanes
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """NumPy's BLAS on one thread while this file runs, as torch's: beside
+    the suite's other workers an OpenBLAS pool on every core stalls each
+    call (building a feeder141 core took ~50x longer)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 
 def _polytopes():
@@ -26,19 +38,22 @@ def _polytopes():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_projections():
-    """Both JAX projections of the ANM6 polytopes, each compiled once for
-    every seed (op by op, each of their ops compiles alone)."""
-    _, G = _polytopes()
-    lanes = jax.jit(lambda px, py, h: jax_project_lanes(px, py, G, h))
-    points = jax.jit(lambda pts, h: project_polytope(pts, jnp.broadcast_to(G, (pts.shape[0],) + G.shape), h))
-    return lanes, points
+def _refs():
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_refs_projection.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _digest(*arrays):
+    """``scripts/gen_torch_test_refs.py::digest``."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a, dtype=np.float64)).tobytes())
+    return h.hexdigest()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_projection_matches_jax(seed):
     spec, G = _polytopes()
-    jax_lanes, jax_points = _jax_projections()
     h0 = np.concatenate([spec.gen_h0, spec.des_h0], axis=0)  # [C, m]
     C = G.shape[0]
     rng = np.random.default_rng(seed)
@@ -51,16 +66,16 @@ def test_projection_matches_jax(seed):
     scale = np.where(np.arange(B) < B // 2, 0.3, 1.5)
     px = rng.uniform(-1.0, 1.0, (C, B)) * scale
     py = rng.uniform(-1.0, 1.0, (C, B)) * scale
+    ref = {k.split("/")[-1]: v for k, v in _refs().items() if k.startswith("matches/%d/" % seed)}
+    assert str(ref["inputs_sha256"]) == _digest(px, py, h), "re-run scripts/gen_torch_test_refs.py"
 
     x, y = project_polytope_lanes(torch.tensor(px), torch.tensor(py), G, torch.tensor(h))
-    jx, jy = jax_lanes(jnp.asarray(px), jnp.asarray(py), jnp.asarray(h))
-    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=0, atol=1e-12)
-    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=0, atol=1e-12)
-
-    pts = np.stack([px.T, py.T], axis=-1)  # [B, C, 2]
-    ref = np.asarray(jax_points(jnp.asarray(pts), jnp.asarray(np.moveaxis(h, 2, 0))))
-    np.testing.assert_allclose(x.numpy().T, ref[..., 0], rtol=0, atol=1e-12)
-    np.testing.assert_allclose(y.numpy().T, ref[..., 1], rtol=0, atol=1e-12)
+    # JAX's project_polytope_lanes
+    np.testing.assert_allclose(x.numpy(), ref["lanes_x"], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(y.numpy(), ref["lanes_y"], rtol=0, atol=1e-12)
+    # JAX's project_polytope over [B, C, 2] points, G broadcast over B
+    np.testing.assert_allclose(x.numpy().T, ref["points"][..., 0], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(y.numpy().T, ref["points"][..., 1], rtol=0, atol=1e-12)
 
     inside = (x.numpy() == px) & (y.numpy() == py)
     assert 0.05 < inside.mean() < 0.95  # both cases are exercised

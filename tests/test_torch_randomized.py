@@ -5,7 +5,9 @@
   admittance matrices (float64) in both packages.
 * A fleet step in float64: ANM6Easy (G=3, the tree path) from the JAX
   fleet's reset states carried across, three steps of the same actions
-  (its internal variables are deterministic); feeder33 (G=2) given the
+  (its internal variables are deterministic; the JAX fleet's states and
+  steps as ``scripts/gen_torch_test_refs.py`` records them in
+  ``tests/data/torch_refs_randomized.npz``); feeder33 (G=2) given the
   internal variables the JAX fleet step draws from its key.  Observations,
   state vectors, rewards and ``terminated`` agree to 1e-8 per variant.
 * The port of each test of ``tests/test_randomized.py``, under the same
@@ -15,12 +17,14 @@
 """
 
 import functools
+import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.core.env_core import EnvState as JaxEnvState
 from gym_anm_tpu.core.state import SimState as JaxSimState
@@ -55,6 +59,16 @@ from gym_anm_tpu_torch.rl import PPOConfig, SACConfig
 # core; one thread per worker keeps the suite from oversubscribing the CPU.
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """NumPy's BLAS on one thread while this file runs, as torch's: beside
+    the suite's other workers an OpenBLAS pool on every core stalls each
+    call (building a feeder141 core took ~50x longer)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
+
 F64 = dict(dtype=torch.float64, device="cpu")
 ATOL = 1e-8
 
@@ -73,9 +87,11 @@ def _from_jax(jes):
 
 
 def _assert_out_close(out, jout, g):
-    np.testing.assert_array_equal(out.terminated[g].numpy(), np.asarray(jout.terminated[g]))
+    """``jout``: a JAX fleet step's output, or its arrays by name."""
+    get = (lambda k: jout[k]) if isinstance(jout, dict) else (lambda k: getattr(jout, k))
+    np.testing.assert_array_equal(out.terminated[g].numpy(), np.asarray(get("terminated")[g]))
     for name in ("obs", "state_vec", "reward"):
-        np.testing.assert_allclose(getattr(out, name)[g].numpy(), np.asarray(getattr(jout, name)[g]), rtol=0,
+        np.testing.assert_allclose(getattr(out, name)[g].numpy(), np.asarray(get(name)[g]), rtol=0,
                                    atol=ATOL, err_msg="variant %d %s" % (g, name))
 
 
@@ -115,26 +131,27 @@ def test_randomized_cores_equal_jax(name):
 # ----------------------------------------------------------------------------
 # Fleet steps in float64
 
-@functools.lru_cache(maxsize=None)
 def _jax_anm6_fleet():
-    """The JAX fleet's reset states and three steps of fixed actions."""
-    jcores = jax_randomized_anm6easy_cores(3, seed=0, r_sigma=0.2, x_sigma=0.2, dtype=jnp.float64)
-    fleet = JaxMultiBatchedEnv(jcores, lanes_per_variant=8)
-    states, _ = fleet.reset(jax.random.PRNGKey(0))
-    rng = np.random.default_rng(0)
-    lo, hi = np.asarray(jcores[0].action_low), np.asarray(jcores[0].action_high)
-    actions = rng.uniform(lo, hi, (3, 3, 8, lo.shape[0]))
-    outs, js = [], states
-    for t in range(3):
-        js, out = fleet.step(js, jnp.asarray(actions[t]), jax.random.PRNGKey(10 + t))
-        outs.append(out)
-    return states, actions, outs
+    """The JAX fleet's reset states (``reset(PRNGKey(0))`` of G=3 variants x
+    8 lanes) and three steps of fixed actions, as recorded."""
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_refs_randomized.npz")) as z:
+        j = {k[len("anm6/"):]: z[k] for k in z.files if k.startswith("anm6/")}
+    states = tuple(
+        env_state_from_numpy({k: j["init/%d/sim/%s" % (g, k)] for k in SIM_FIELDS},
+                             *(j["init/%d/%s" % (g, k)] for k in ("aux", "terminated", "state_vec")), **F64)
+        for g in range(3)
+    )
+    outs = [{k: j["step%d/%s" % (t, k)] for k in ("obs", "state_vec", "reward", "terminated")} for t in range(3)]
+    return states, j["actions"], outs
 
 
 def test_anm6easy_fleet_step_matches_jax_f64():
-    jstates, actions, jouts = _jax_anm6_fleet()
-    fleet = MultiBatchedEnv(randomized_anm6easy_cores(3, seed=0, r_sigma=0.2, x_sigma=0.2, **F64), 8)
-    states = tuple(_from_jax(s) for s in jstates)
+    states, actions, jouts = _jax_anm6_fleet()
+    cores = randomized_anm6easy_cores(3, seed=0, r_sigma=0.2, x_sigma=0.2, **F64)
+    lo, hi = np.asarray(cores[0].action_low), np.asarray(cores[0].action_high)
+    np.testing.assert_array_equal(actions, np.random.default_rng(0).uniform(lo, hi, (3, 3, 8, lo.shape[0])),
+                                  err_msg="re-run scripts/gen_torch_test_refs.py")
+    fleet = MultiBatchedEnv(cores, 8)
     for t, jout in enumerate(jouts):
         states, out = fleet.step(states, torch.tensor(actions[t]))
         assert out.obs.shape == (3, 8, fleet.obs_n) and out.reward.shape == (3, 8)

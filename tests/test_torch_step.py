@@ -4,7 +4,9 @@ against the JAX package's.
 * ``transition(pf_method="fused")`` in float32 against the JAX package's
   ``transition(pf_method="fused")`` routed through the TPU kernel
   ``_step_tile_kernel`` in Pallas interpret mode, with the tolerances of
-  ``tests/test_pallas_step.py``.
+  ``tests/test_pallas_step.py``; the JAX side's outputs (minutes of
+  interpret mode) are recorded by ``scripts/gen_torch_test_refs.py`` in
+  ``tests/data/torch_refs_step.npz``.
 * ``fused_transition_plain`` in float64 against the port's unfused
   ``"pallas"`` transition on the ANM6 and feeder33 grids, to 1e-9.
 * The dispatch: the semantic downgrade of ``"fused"`` on grids without a
@@ -14,17 +16,12 @@ The CUDA kernel itself is tested on a GPU by ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
+import os
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
-
-import gym_anm_tpu.ops.pallas_step as jax_pallas_step
-from gym_anm_tpu.core import transition as jax_T
-from gym_anm_tpu.core.grid import build_grid as jax_build_grid
-from gym_anm_tpu.envs.anm6.network import network as jax_anm6_network
+from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
 from gym_anm_tpu_torch.core.state import SIM_FIELDS
@@ -36,6 +33,16 @@ from gym_anm_tpu_torch.ops import nr_cuda, step_cuda
 # Each pytest-xdist worker would otherwise run its own intra-op pool on every
 # core; one thread per worker keeps the suite from oversubscribing the CPU.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """NumPy's BLAS on one thread while this file runs, as torch's: beside
+    the suite's other workers an OpenBLAS pool on every core stalls each
+    call (building a feeder141 core took ~50x longer)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
 
 NETWORKS = {"anm6": anm6_network, "feeder33": make_feeder_network()}
 
@@ -60,28 +67,26 @@ def _set_points(spec, B, seed, dtype):
 
 def test_fused_matches_pallas_step_kernel_interpret():
     spec, _ = build_grid(anm6_network, 0.25, 100, dtype=np.float32)
-    jspec, _ = jax_build_grid(jax_anm6_network, 0.25, 100, dtype=np.float32)
     g = GridTensors.from_spec(spec, "cpu", torch.float32)
     args = _set_points(spec, 128, 0, np.float32)
-    old = jax_pallas_step.FORCE_INTERPRET
-    jax_pallas_step.FORCE_INTERPRET = True
-    try:
-        assert jax_T.resolve_solver_path(jspec, "fused", args["des_soc"], args["P_load"])[0] == "fused_kernel"
-        with pltpu.force_tpu_interpret_mode():
-            theirs = jax_T.transition(jspec, **{k: jnp.asarray(v) for k, v in args.items()}, pf_method="fused", max_iter=10)
-    finally:
-        jax_pallas_step.FORCE_INTERPRET = old
+    # The JAX package's fused transition of these inputs through the TPU
+    # kernel in interpret mode, as recorded.
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_refs_step.npz")) as z:
+        theirs = {k[len("fused/"):]: z[k] for k in z.files}
+    for k, v in args.items():
+        np.testing.assert_array_equal(v, theirs["inputs/" + k], err_msg="re-run scripts/gen_torch_test_refs.py")
+    assert str(theirs["path"]) == "fused_kernel"
     ours = transition(g, **{k: torch.tensor(v) for k, v in args.items()}, pf_method="fused", max_iter=10)
 
-    conv, jconv = ours.pfe_converged.numpy(), np.asarray(theirs.pfe_converged)
+    conv, jconv = ours.pfe_converged.numpy(), theirs["pfe_converged"]
     assert (conv == jconv).mean() >= 0.99 and conv.mean() > 0.9
     both = conv & jconv
     for f in SIM_FIELDS[:-1]:
-        a, b = getattr(ours.state, f).numpy()[both], np.asarray(getattr(theirs.state, f))[both]
+        a, b = getattr(ours.state, f).numpy()[both], theirs["state/" + f][both]
         np.testing.assert_allclose(a, b, atol=5e-5, err_msg=f)
-    np.testing.assert_allclose(ours.e_loss.numpy()[both], np.asarray(theirs.e_loss)[both], atol=5e-5)
+    np.testing.assert_allclose(ours.e_loss.numpy()[both], theirs["e_loss"][both], atol=5e-5)
     # The penalty amplifies voltage and flow round-off by lamb = 100.
-    np.testing.assert_allclose(ours.penalty.numpy()[both], np.asarray(theirs.penalty)[both], atol=5e-3)
+    np.testing.assert_allclose(ours.penalty.numpy()[both], theirs["penalty"][both], atol=5e-3)
 
 
 @pytest.mark.parametrize("name", ["anm6", "feeder33"])

@@ -3,9 +3,12 @@
 * The pure step of ``envs/vector_core.py`` against ``ANMVectorEnv._jit_step``
   of the JAX package on ANM6Easy (``tree``) in float64: the same state,
   ``needs_reset`` (two lanes forced through a reset), actions, and the vars
-  and fresh initial states JAX drew for its key, re-derived here as
+  and fresh initial states JAX drew for its key, re-derived as
   ``vector.py:95-107`` draws them.  Observations, rewards, ``terminated``
-  and the next states agree to 1e-8 over 6 steps.
+  and the next states agree to 1e-8 over 6 steps.  The JAX side (its
+  state after the reset, each step's draws and outputs) is recorded by
+  ``scripts/gen_torch_test_refs.py`` in
+  ``tests/data/torch_refs_vector_env.npz``.
 * Next-step autoreset (``tests/test_vector_env.py``),
   ``tests/test_failed_reset.py::test_vector_env_reset_failed_info``, and
   the lockstep core's draw order and one-copy host conversion.
@@ -16,69 +19,65 @@ this file keeps few tests so that it runs after the suite's long-running
 files have started (see ``tests/test_torch_gym_env.py``).
 """
 
-import jax
-import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
-from gym_anm_tpu.envs.anm6.anm6_easy import make_core as jax_make_core
-from gym_anm_tpu.envs.vector import ANMVectorEnv as JaxANMVectorEnv
-
-from gym_anm_tpu_torch.core.state import env_state_from_numpy
+from gym_anm_tpu_torch.core.state import SIM_FIELDS, env_state_from_numpy
 from gym_anm_tpu_torch.envs import vector_core
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
 from gym_anm_tpu_torch.envs.vector import ANMVectorEnv
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """NumPy's BLAS on one thread while this file runs, as torch's: beside
+    the suite's other workers an OpenBLAS pool on every core stalls each
+    call (building a feeder141 core took ~50x longer)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
+
 B = 16
 ATOL = 1e-8
 
 
-def _to_torch(jes):
-    return env_state_from_numpy(jes.sim, jes.aux, jes.terminated, jes.state_vec, device="cpu", dtype=torch.float64)
-
-
 def test_pure_step_matches_jax():
-    jenv = JaxANMVectorEnv(jax_make_core(dtype=jnp.float64), num_envs=B, seed=0)
-    jcore = jenv.core
+    # JaxANMVectorEnv(make_core(dtype=float64), num_envs=B, seed=0) after
+    # reset(seed=2), stepped with PRNGKey(100 + t), as recorded.
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_refs_vector_env.npz")) as z:
+        j = {k: z[k] for k in z.files}
     core = make_core(torch.float64, device="cpu")
-    jenv.reset(seed=2)
-    jes = jenv._es
-    needs = np.zeros(B, dtype=bool)
-    needs[[3, 11]] = True
-    es, needs_t = _to_torch(jes), torch.tensor(needs)
-
-    @jax.jit
-    def draws(es, key):  # vector.py:95-107
-        k_vars, k_reset = jax.random.split(key)
-        if jcore.stochastic_vars:
-            vars = jax.vmap(jcore.next_vars_fn)(jcore.state_vec(es), jax.random.split(k_vars, B))
-        else:
-            vars = jax.vmap(jcore.next_vars_fn, in_axes=(0, None))(jcore.state_vec(es), k_vars)
-        return vars, jax.vmap(jcore.init_state_fn)(jax.random.split(k_reset, B))
+    needs = j["needs0"]
+    assert needs.sum() == 2 and needs[3] and needs[11]
+    es = env_state_from_numpy({k: j["init/sim/" + k] for k in SIM_FIELDS}, j["init/aux"], j["init/terminated"],
+                              j["init/state_vec"], device="cpu", dtype=torch.float64)
+    needs_t = torch.tensor(needs)
 
     rng = np.random.default_rng(0)
     reset_seen = 0
     for t in range(6):
+        p = "step%d/" % t
         actions = rng.uniform(core.action_low, core.action_high, size=(B, core.action_n))
-        key = jax.random.PRNGKey(100 + t)
-        vars, s0 = draws(jes, key)
-        jes, jobs, jrew, jterm, jnext = jenv._jit_step(jes, jnp.asarray(needs), jnp.asarray(actions), key)
-        es, vs = vector_core.step(core, es, needs_t, torch.tensor(actions), torch.tensor(np.asarray(vars)),
-                                  torch.tensor(np.asarray(s0)))
-        np.testing.assert_array_equal(vs.terminated.numpy(), np.asarray(jterm))
-        np.testing.assert_array_equal(es.terminated.numpy(), np.asarray(jes.terminated))
-        for got, want in ((vs.obs, jobs), (vs.reward, jrew), (es.state_vec, jes.state_vec),
-                          (es.sim.bus_v_re, jes.sim.bus_v_re), (es.sim.bus_v_im, jes.sim.bus_v_im)):
-            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL, err_msg="step %d" % t)
+        np.testing.assert_array_equal(actions, j[p + "actions"], err_msg="re-run scripts/gen_torch_test_refs.py")
+        vars, s0 = j[p + "vars"], j[p + "s0"]  # vector.py:95-107's draws for the step's key
+        es, vs = vector_core.step(core, es, needs_t, torch.tensor(actions), torch.tensor(vars), torch.tensor(s0))
+        np.testing.assert_array_equal(vs.terminated.numpy(), j[p + "terminated"])
+        np.testing.assert_array_equal(es.terminated.numpy(), j[p + "es/terminated"])
+        for got, want in ((vs.obs, j[p + "obs"]), (vs.reward, j[p + "reward"]), (es.state_vec, j[p + "es/state_vec"]),
+                          (es.sim.bus_v_re, j[p + "es/bus_v_re"]), (es.sim.bus_v_im, j[p + "es/bus_v_im"])):
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL, err_msg="step %d" % t)
         # Reset lanes: reward 0, not terminated, the fresh state's observation.
         assert not vs.terminated[needs_t].any() and (vs.reward[needs_t] == 0).all()
-        fresh = core.env_state_from_s0(torch.tensor(np.asarray(s0)))
+        fresh = core.env_state_from_s0(torch.tensor(s0))
         torch.testing.assert_close(vs.obs[needs_t], core.observation(fresh)[needs_t], rtol=0, atol=0)
         reset_seen += int(needs.sum())
-        needs = np.asarray(jnext)
+        needs = j[p + "needs_next"]
         needs_t = vs.terminated
     assert reset_seen >= 2
 
