@@ -7,25 +7,11 @@ trainers' checkpoints restore weights and optimiser state."""
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch.checkpoint import load_pytree, save_pytree
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
 from gym_anm_tpu_torch.envs.batched import BatchedEnv
 from gym_anm_tpu_torch.rl import PPOConfig, PPOTrainer, SACConfig, SACTrainer
-
-# Each pytest-xdist worker would otherwise run its own intra-op pool on every
-# core; one thread per worker keeps the suite from oversubscribing the CPU.
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 def _leaves(tree):

@@ -30,9 +30,7 @@ import json
 import os
 
 import numpy as np
-import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.envs.anm6.anm6_easy import ANM6Easy as JaxANM6Easy
 from gym_anm_tpu.envs.anm_env import ANMEnv as JaxANMEnv
@@ -42,17 +40,6 @@ from gym_anm_tpu_torch.envs.anm6.anm6_easy import ANM6Easy
 from gym_anm_tpu_torch.envs.anm_env import ANMEnv
 from gym_anm_tpu_torch.envs.feeder33 import Feeder33Env
 from gym_anm_tpu_torch.envs.feeder141 import Feeder141Env
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 ATOL = 1e-8

@@ -28,7 +28,6 @@ import gymnasium as gym
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.envs import utils as jax_env_utils
 from gym_anm_tpu.envs.anm6 import utils as jax_anm6_utils
@@ -48,17 +47,6 @@ from gym_anm_tpu_torch.errors import ArgsError, EnvInitializationError, EnvNextV
 from gym_anm_tpu_torch.render import rendering, replay, servers
 from tests import test_replay_artifact as artifact
 from tests.test_torch_gym_env import CollapsingEnv, SimpleEnv, simple_network
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,6 @@ import types
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.agents import MPCAgentConstant as JaxConstant, MPCAgentPerfect as JaxPerfect
 from gym_anm_tpu.envs.anm6.anm6_easy import _get_gen_time_series as jax_gens, _get_load_time_series as jax_loads
@@ -46,17 +45,6 @@ from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
 from gym_anm_tpu_torch.envs.batched import BatchedEnv
 from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
 from gym_anm_tpu_torch.simulator import Simulator
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 B = 4

@@ -28,7 +28,6 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 from jax.experimental.pallas import tpu as pltpu
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -44,19 +43,6 @@ from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
 from gym_anm_tpu_torch.ops import nr_cuda
 from gym_anm_tpu_torch.ops.nr_cuda import nr_core_plain, solve_pfe_nr
 from gym_anm_tpu_torch.ops.power_flow import warm_init_theta_vm
-
-# Each pytest-xdist worker would otherwise run its own intra-op pool on every
-# core; one thread per worker keeps the suite from oversubscribing the CPU.
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 GRIDS = {

@@ -16,7 +16,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.core.env_core import EnvCore as JaxEnvCore, EnvState as JaxEnvState
 from gym_anm_tpu.core.grid import build_grid as jax_build_grid
@@ -31,19 +30,6 @@ from gym_anm_tpu_torch.core.obs import PACKED_KEYS, compile_gather, pack_observa
 from gym_anm_tpu_torch.core.state import SIM_FIELDS, sim_state_from_numpy
 from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
 from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
-
-# Each pytest-xdist worker would otherwise run its own intra-op pool on every
-# core; one thread per worker keeps the suite from oversubscribing the CPU.
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 GRIDS = {"anm6": (anm6_network, jax_anm6_network), "feeder33": (make_feeder_network(), JAX_F33)}

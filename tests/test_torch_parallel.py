@@ -15,22 +15,10 @@ float64 reference too."""
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch import check
 from gym_anm_tpu_torch.parallel import sharding
 from gym_anm_tpu_torch.parallel.dryrun import digest, dryrun_multidevice
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 WORLD = 2

@@ -16,9 +16,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
-import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.envs.anm6.anm6_easy import make_core as jax_make_core
 from gym_anm_tpu.rl import PPOConfig as JaxPPOConfig, PPOTrainer as JaxPPOTrainer
@@ -27,19 +25,6 @@ from gym_anm_tpu.rl.ppo import Transition as JaxTransition
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
 from gym_anm_tpu_torch.rl import PPOConfig, PPOTrainer
 from gym_anm_tpu_torch.rl.ppo import Transition, gae, params_from_flax
-
-# Each pytest-xdist worker would otherwise run its own intra-op pool on every
-# core; one thread per worker keeps the suite from oversubscribing the CPU.
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 HIDDEN = (32, 32)

@@ -8,24 +8,10 @@ import time
 
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.profiling import StepRateCounter as JaxStepRateCounter
 
 from gym_anm_tpu_torch.profiling import StepRateCounter, trace
-
-# Each pytest-xdist worker would otherwise run its own intra-op pool on every
-# core; one thread per worker keeps the suite from oversubscribing the CPU.
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 SAMPLES = [(4096, 0.25), (8192, 0.125), (100, 3.0), (7, 0.0), (4096, 0.3)]

@@ -25,7 +25,6 @@ import os
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch.core.grid import GridTensors, build_grid, projection_form
 from gym_anm_tpu_torch.envs.anm6.network import network
@@ -37,17 +36,6 @@ from gym_anm_tpu_torch.ops.projection import (
     project_polytope_lanes,
 )
 from gym_anm_tpu_torch.profiling import count_aten_ops
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 TASKS = ("anm6", "feeder33", "feeder141")

@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.core.env_core import EnvState as JaxEnvState
 from gym_anm_tpu.core.state import SimState as JaxSimState
@@ -54,19 +53,6 @@ from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
 from gym_anm_tpu_torch.envs.feeder33 import make_core as f33_make_core
 from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
 from gym_anm_tpu_torch.rl import PPOConfig, SACConfig
-
-# Each pytest-xdist worker would otherwise run its own intra-op pool on every
-# core; one thread per worker keeps the suite from oversubscribing the CPU.
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 F64 = dict(dtype=torch.float64, device="cpu")

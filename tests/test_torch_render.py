@@ -24,8 +24,6 @@ from unittest import mock
 
 import numpy as np
 import pytest
-import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.envs.anm6.anm6_easy import ANM6Easy as JaxANM6Easy
 from gym_anm_tpu.render import rendering as jax_rendering
@@ -33,17 +31,6 @@ from gym_anm_tpu.render import rendering as jax_rendering
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import ANM6Easy
 from gym_anm_tpu_torch.render import rendering
 from tests import test_replay_artifact as artifact
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 ATOL = 1e-8

@@ -16,7 +16,6 @@
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.envs.anm6.network import network as jax_anm6_network
 from gym_anm_tpu.envs.feeder33 import _NETWORK as JAX_F33
@@ -28,17 +27,6 @@ from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
 from gym_anm_tpu_torch.envs.feeder33 import make_core as f33_make_core
 from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
 from gym_anm_tpu_torch.simulator import Simulator, components
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 ATOL = 1e-9

@@ -15,7 +15,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu import check as jcheck
 from gym_anm_tpu.envs.anm6.anm6_easy import make_core as jax_make_core
@@ -24,19 +23,6 @@ from gym_anm_tpu_torch import check
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
 from gym_anm_tpu_torch.envs.batched import BatchedEnv
 from gym_anm_tpu_torch.ops import tree_cuda
-
-# Each pytest-xdist worker would otherwise run its own intra-op pool on every
-# core; one thread per worker keeps the suite from oversubscribing the CPU.
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 @pytest.fixture(scope="module")

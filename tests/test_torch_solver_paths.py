@@ -9,11 +9,7 @@ solver's chord step (one ``J0inv @ F`` product) is held against the dense
 kernel twin's column loop at feeder141; at ANM6 and feeder33 it is held
 against JAX by ``tests/test_torch_power_flow.py``.  The replays of the
 committed references through these paths are in
-``tests/test_torch_solver_replays.py``.
-
-A feeder141 core inverts a 280 x 280 matrix on the host: BLAS runs on one
-thread here, as torch does, since many threads a process thrash when the
-test workers load every core."""
+``tests/test_torch_solver_replays.py``."""
 
 import dataclasses
 
@@ -21,7 +17,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.envs.feeder141 import make_core as jax_f141_make_core
 
@@ -34,13 +29,6 @@ from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network, make_mul
 from gym_anm_tpu_torch.ops import nr_cuda
 from gym_anm_tpu_torch.ops.power_flow import flat_start_jacobian_inv_np
 
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    with threadpool_limits(1):
-        yield
 
 F141_METHODS = ("tree", "tree_xla", "hybrid", "xla_hybrid", "scan", "while")
 

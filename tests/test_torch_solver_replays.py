@@ -6,27 +6,16 @@ float64 against the reference the JAX package made in float64 through
 lanes and 4 steps, the chord-only and ``tree_xla`` paths on all 64 lanes
 and 16 steps, with no kernel launch counted; ``check.run_check`` replays a
 reference through a path.  Few tests, so that the file runs after the
-longest files have started.  BLAS runs on one thread, as in
-``tests/test_torch_solver_paths.py``."""
+longest files have started."""
 
-import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch import check
 from gym_anm_tpu_torch.envs.feeder141 import make_core
 from gym_anm_tpu_torch.ops import nr_cuda, step_cuda, tree_cuda
 
-torch.set_num_threads(1)
-
 # The float64 reference's own storage is float32: 5e-8 of the state's range.
 F64_ATOL = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    with threadpool_limits(1):
-        yield
 
 
 def _counts():

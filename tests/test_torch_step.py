@@ -21,7 +21,6 @@ import os
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
 from gym_anm_tpu_torch.core.state import SIM_FIELDS
@@ -29,19 +28,6 @@ from gym_anm_tpu_torch.core.transition import resolve_solver_path, transition
 from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
 from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
 from gym_anm_tpu_torch.ops import nr_cuda, step_cuda
-
-# Each pytest-xdist worker would otherwise run its own intra-op pool on every
-# core; one thread per worker keeps the suite from oversubscribing the CPU.
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 NETWORKS = {"anm6": anm6_network, "feeder33": make_feeder_network()}

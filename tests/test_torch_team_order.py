@@ -23,20 +23,8 @@ import types
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch.ops import step_cuda
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 EPS = 1e-5

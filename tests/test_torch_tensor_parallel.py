@@ -15,22 +15,10 @@ import os
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 import torch.distributed as dist
 
 from gym_anm_tpu_torch.parallel import launch, sharding
 from gym_anm_tpu_torch.parallel.dryrun import run_ranks
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 HIDDEN = (32, 32)

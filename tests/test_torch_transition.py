@@ -8,7 +8,6 @@ import numpy as np
 import jax
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu.core.grid import build_grid as jax_build_grid
 from gym_anm_tpu.core.transition import sim_reset as jax_sim_reset, transition as jax_transition
@@ -18,15 +17,6 @@ from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
 from gym_anm_tpu_torch.core.state import SIM_FIELDS, sim_state_from_numpy
 from gym_anm_tpu_torch.core.transition import sim_reset, transition
 from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 def _set_points(B, seed):

@@ -26,7 +26,6 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 from jax.experimental.pallas import tpu as pltpu
 
 from gym_anm_tpu.core.grid import build_grid as jax_build_grid
@@ -43,15 +42,6 @@ from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network, make_mul
 from gym_anm_tpu_torch.ops import tree_cuda
 from gym_anm_tpu_torch.ops.power_flow import warm_init_theta_vm
 from gym_anm_tpu_torch.ops.tree_cuda import DeviceSchedule, gather_tables, solve_pfe_tree
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 GRIDS = {

@@ -24,23 +24,11 @@ import os
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from gym_anm_tpu_torch.core.state import SIM_FIELDS, env_state_from_numpy
 from gym_anm_tpu_torch.envs import vector_core
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
 from gym_anm_tpu_torch.envs.vector import ANMVectorEnv
-
-torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """NumPy's BLAS on one thread while this file runs, as torch's: beside
-    the suite's other workers an OpenBLAS pool on every core stalls each
-    call (building a feeder141 core took ~50x longer)."""
-    with threadpool_limits(1, user_api="blas"):
-        yield
 
 
 B = 16
