@@ -176,6 +176,7 @@ class EnvCore:
                 idx=t(self.obs_gather.idx).long(), scale=t(self.obs_gather.scale).to(dtype),
                 low=t(self.obs_gather.low).to(dtype), high=t(self.obs_gather.high).to(dtype),
             )
+            self._bus_sorted = t(np.asarray(spec.bus_sorted, dtype=np.int64))
 
         # Action bounds [P_gen, Q_gen, P_des, Q_des] x baseMVA, each block
         # ordered by device ID (simulator.py:341-380, anm_env.py:475-495).
@@ -232,7 +233,7 @@ class EnvCore:
         if self.obs_gather is not None and self._obs_is_state:
             obs = torch.clamp(es.state_vec, self._obs_tables.low, self._obs_tables.high)
         elif self.obs_gather is not None:
-            obs = self._obs_tables(pack_observables(self.spec, es.sim, es.aux), clip=True)
+            obs = self._obs_tables(pack_observables(self.spec, es.sim, es.aux, self._bus_sorted), clip=True)
         elif self.obs_fn is not None:
             obs = self.obs_fn(self.state_vec(es))
             obs = obs[:, None] if obs.dim() == 1 else obs

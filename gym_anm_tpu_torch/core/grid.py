@@ -901,6 +901,7 @@ class GridTensors:
     tree: object  # ops.tree_cuda.DeviceSchedule, None for a meshed grid
     J0inv: torch.Tensor  # [2m, 2m] inverse flat-start Jacobian (chord iterations)
     step: object  # ops.step_cuda.StepTables, None without a load, generator and storage unit
+    inf: torch.Tensor  # [] +inf, the slack power of a diverged solve (made once: no copy a step)
 
     @classmethod
     def from_spec(cls, spec: GridSpec, device, dtype: torch.dtype) -> "GridTensors":
@@ -912,7 +913,7 @@ class GridTensors:
         device = torch.device(device)
         out = {}
         for f in dataclasses.fields(cls):
-            if f.name in ("spec", "device", "dtype", "dev_perm", "projector", "tree", "J0inv", "step"):
+            if f.name in ("spec", "device", "dtype", "dev_perm", "projector", "tree", "J0inv", "step", "inf"):
                 continue
             a = np.asarray(getattr(spec, f.name))
             dt = torch.int64 if np.issubdtype(a.dtype, np.integer) else dtype
@@ -933,5 +934,6 @@ class GridTensors:
             tree=DeviceSchedule.from_spec(spec, device, dtype),
             J0inv=torch.as_tensor(J0inv, device=device).to(dtype),
             step=StepTables.from_spec(spec, device, dtype) if fused_transition_supported(spec) else None,
+            inf=torch.tensor(float("inf"), dtype=dtype, device=device),
             **out,
         )

@@ -79,21 +79,21 @@ def packed_offsets(spec: GridSpec, K: int) -> dict:
     return offsets
 
 
-def pack_observables(spec: GridSpec, sim: SimState, aux) -> torch.Tensor:
+def pack_observables(spec: GridSpec, sim: SimState, aux, bus_sorted: torch.Tensor) -> torch.Tensor:
     """Flatten a SimState (+ aux vars) into the packed observable vector
     ``[..., total]``, in the dtype and on the device of ``sim``.
+    ``bus_sorted``: ``spec.bus_sorted`` as an int64 tensor on that device.
 
     p.u./rad everywhere.  ``branch_i_magn`` is Re(i_from): the reference
     computes ``np.sign(i).real * np.abs(i)`` (simulator.py:613), which under
     NumPy>=2 complex-sign semantics (sign(z) = z/|z|) equals the real part.
     """
     dtype, device = sim.dev_p.dtype, sim.dev_p.device
-    srt = torch.as_tensor(np.asarray(spec.bus_sorted, dtype=np.int64), device=device)
-    vr, vi = sim.bus_v_re[..., srt], sim.bus_v_im[..., srt]
-    ir, ii = sim.bus_i_re[..., srt], sim.bus_i_im[..., srt]
+    vr, vi = sim.bus_v_re[..., bus_sorted], sim.bus_v_im[..., bus_sorted]
+    ir, ii = sim.bus_i_re[..., bus_sorted], sim.bus_i_im[..., bus_sorted]
     segs = [
-        sim.bus_p[..., srt],
-        sim.bus_q[..., srt],
+        sim.bus_p[..., bus_sorted],
+        sim.bus_q[..., bus_sorted],
         torch.sqrt(vr * vr + vi * vi),
         torch.atan2(vi, vr),
         torch.sqrt(ir * ir + ii * ii),

@@ -196,6 +196,14 @@ def resolve_solver_path(g: GridTensors, pf_method: str):
     return "torch", eff
 
 
+def capturable(path: str) -> bool:
+    """Whether a CUDA graph can hold a transition on the solver ``path``
+    (:func:`resolve_solver_path`'s): the kernels' paths.  The plain solvers
+    end their NR loops on a host read of the lanes' convergence, which a
+    capture cannot make."""
+    return path in ("tree_kernel", "nr_kernel", "fused_kernel")
+
+
 def _fused(g: GridTensors, args, x_tol, max_iter, chord_iters, nr_pivot) -> TransitionResult:
     """The whole transition in one launch (``ops/step_cuda.py``)."""
     o = fused_transition(
@@ -310,9 +318,8 @@ def transition(
     # slack power becomes +inf).  V_slack = 1 + 0j, so S_slack = conj(I_0).
     i_re = v_re @ g.Y_re.T - v_im @ g.Y_im.T
     i_im = v_im @ g.Y_re.T + v_re @ g.Y_im.T
-    inf = torch.tensor(float("inf"), dtype=g.dtype, device=g.device)
-    p0 = torch.where(torch.isnan(i_re[:, 0]), inf, i_re[:, 0])
-    q0 = torch.where(torch.isnan(i_im[:, 0]), inf, -i_im[:, 0])
+    p0 = torch.where(torch.isnan(i_re[:, 0]), g.inf, i_re[:, 0])
+    q0 = torch.where(torch.isnan(i_im[:, 0]), g.inf, -i_im[:, 0])
     bus_p = torch.cat([p0[:, None], bus_p[:, 1:]], dim=-1)
     bus_q = torch.cat([q0[:, None], bus_q[:, 1:]], dim=-1)
     slack = int(spec.slack_pos)

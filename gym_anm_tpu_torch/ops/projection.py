@@ -74,6 +74,7 @@ class LanesProjector:
         self.feas_gx = t(G[:, self.feas_rows, 0])[:, :, None]  # [C, rows, 1]
         self.feas_gy = t(G[:, self.feas_rows, 1])[:, :, None]
         self.feas_finite = b(g_finite[:, self.feas_rows])[:, :, None]
+        self.feas_idx = torch.as_tensor(self.feas_rows, dtype=torch.int64, device=device)  # gathers them
         self._all_rows = self.feas_rows == list(range(m))  # no gather of rows needed
 
         # Feet of the perpendiculars: (row, gx [C,1], gy [C,1], gg [C,1], present [C,1]).
@@ -123,7 +124,7 @@ class LanesProjector:
         eps = self.eps
         h_fin = torch.isfinite(h)  # [C, m, B]
         tol = eps * (1.0 + torch.where(h_fin, h.abs(), torch.zeros_like(h)))
-        rows = self.feas_rows
+        rows = self.feas_idx
         bound = (h + tol)[:, rows]  # [C, rows, B]
         # Rows inactive for a device (non-finite normal) or a lane (infinite
         # offset) are trivially satisfied.
@@ -166,7 +167,7 @@ class LanesProjector:
         bound = h + self.eps * (1.0 + h_abs)
         fin_rows = h_fin
         if not self._all_rows:
-            bound, fin_rows = bound[:, self.feas_rows], h_fin[:, self.feas_rows]
+            bound, fin_rows = bound[:, self.feas_idx], h_fin[:, self.feas_idx]
         inactive = ~(self.feas_finite & fin_rows)  # [C, rows, B]
 
         # One gather of h's rows: the feet's, then each vertex's r and s.

@@ -11,6 +11,13 @@
 * The port's ``step_fn`` is the step, the draw and the rebirth, in that
   order on its generator; rollouts with a policy and in both auto-reset
   modes on ANM6Easy; ``reset(strict=True)``.
+* The step's CUDA graph runner (``StepGraph``), driven on the CPU with a
+  stand-in for the graph that runs the captured step again on its static
+  buffers: ANM6Easy (``tree``) and feeder33 (``fused``) at B=64, two 64-step
+  pool segments, equal the eager step bit for bit; a returned tensor stays
+  as it was after the next step; the task's hooks run once a step and once
+  a segment; two states stepped in turns still match; the kernels' launch
+  counters and the engagement counters add up.
 """
 
 import numpy as np
@@ -27,10 +34,15 @@ from gym_anm_tpu.envs.batched import BatchedEnv as JaxBatchedEnv
 from gym_anm_tpu_torch.core.env_core import EnvCore
 from gym_anm_tpu_torch.core.grid import build_grid
 from gym_anm_tpu_torch.core.obs import state_values_spec
+from gym_anm_tpu_torch import check
+from gym_anm_tpu_torch.core import transition
 from gym_anm_tpu_torch.core.state import SIM_FIELDS
+from gym_anm_tpu_torch.envs import batched
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
-from gym_anm_tpu_torch.envs.batched import BatchedEnv, take_lanes
+from gym_anm_tpu_torch.envs.batched import BatchedEnv, _state_tensors, take_lanes
 from gym_anm_tpu_torch.errors import EnvInitializationError
+from gym_anm_tpu_torch import ops
+from gym_anm_tpu_torch.ops import kernel_modules, step_cuda, tree_cuda
 
 
 B = 64
@@ -168,3 +180,227 @@ def test_reset_strict_raises_when_every_attempt_fails():
         env.reset(strict=True)
     with pytest.raises(ValueError, match="auto_reset_mode"):
         BatchedEnv(core, 4, auto_reset=True, auto_reset_mode="lane")
+
+
+KERNEL_MODULES = kernel_modules()
+GRAPH_TASKS = {"anm6easy": ("tree", "solve_pfe_tree", tree_cuda), "feeder33": ("fused", "fused_transition", step_cuda)}
+
+
+class HostGraph:
+    """Stands in for a CUDA graph on the CPU (``batched.cuda_graph``): the
+    capture runs the step's host code once, as ``torch.cuda.graph`` does;
+    each replay runs it again on the static buffers and leaves the kernels'
+    launch counters as they were, as a replay does."""
+
+    def __init__(self, fn):
+        fn()
+        self.fn = fn
+
+    def __call__(self):
+        counts = [m.KERNEL_LAUNCHES for m in KERNEL_MODULES]
+        self.fn()
+        for m, n in zip(KERNEL_MODULES, counts):
+            m.KERNEL_LAUNCHES = n
+
+
+def _counters():
+    return [m.KERNEL_LAUNCHES for m in KERNEL_MODULES] + [
+        batched.STEP_GRAPH_CAPTURES, batched.STEP_GRAPH_REPLAYS, batched.STEP_EAGER_CALLS]
+
+
+def _graph_run(task, graph, alternate):
+    """A B=64 run of ``task`` with pool auto-reset through ``step_fn``, the
+    graph runner engaged on the CPU (``graph``) or not.  The path's solve
+    counts as a kernel launch.  Two 64-step segments of one state, or
+    (``alternate``) one 16-step segment of two states stepped in turns.
+    Returns what each step returned, a copy of it taken then, the per-segment
+    rewards and terminations, the final states, the hook calls and the
+    counters' increments."""
+    pf_method, solver, module = GRAPH_TASKS[task]
+    with pytest.MonkeyPatch.context() as mp:
+        original = getattr(transition, solver)
+
+        def counted(*args, **kwargs):
+            module.KERNEL_LAUNCHES += 1
+            return original(*args, **kwargs)
+
+        mp.setattr(transition, solver, counted)
+        if graph:
+            mp.setattr(BatchedEnv, "_graph_device", "cpu")
+            mp.setattr(batched, "cuda_graph", HostGraph)
+        core = check.task_make_core(task)(dtype=torch.float32, device="cpu", pf_method=pf_method)
+        env = BatchedEnv(core, B, generator=torch.Generator().manual_seed(11), auto_reset=True)
+        calls = {"vars": 0, "init": 0}
+        f_vars, f_init, f_step = core.next_vars_fn, core.init_state_fn, env.step_fn
+
+        def next_vars_fn(s, generator):
+            calls["vars"] += 1
+            return f_vars(s, generator)
+
+        def init_state_fn(generator, batch_size):
+            calls["init"] += 1
+            return f_init(generator, batch_size)
+
+        returned = []
+
+        def step_fn(es, actions, generator=None, fresh=None):
+            es, out = f_step(es, actions, generator, fresh)
+            ts = _state_tensors(es) + list(out)
+            returned.append((ts, [t.clone() for t in ts]))
+            return es, out
+
+        core.next_vars_fn, core.init_state_fn, env.step_fn = next_vars_fn, init_state_fn, step_fn
+        states = [env.reset()[0] for _ in range(2 if alternate else 1)]
+        c0 = _counters()
+        calls.update(vars=0, init=0)
+        ys = []
+        if alternate:
+            fresh = env.fresh_states()
+            for _ in range(16):
+                for i, es in enumerate(states):
+                    states[i], out = env.step_fn(es, env.random_actions(), fresh=fresh)
+                    ys.append((out.reward, out.terminated))
+        else:
+            for _ in range(2):
+                states[0], y = env.rollout(states[0], 64)
+                ys.append(y)
+        return returned, ys, states, calls, [b - a for a, b in zip(c0, _counters())]
+
+
+@pytest.fixture(scope="module")
+def graph_runs():
+    cache = {}
+
+    def get(task, graph, alternate=False):
+        key = (task, graph, alternate)
+        if key not in cache:
+            cache[key] = _graph_run(task, graph, alternate)
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("case", ["bit_identical", "returned_unchanged", "hooks_once", "alternating", "counters"])
+@pytest.mark.parametrize("task", list(GRAPH_TASKS))
+def test_step_graph_runner_on_host(graph_runs, task, case):
+    steps = 2 * 64
+    if case == "bit_identical":
+        _, ys_g, es_g, _, _ = graph_runs(task, True)
+        _, ys_e, es_e, _, _ = graph_runs(task, False)
+        assert bool(torch.cat([t for _, t in ys_g]).any())  # lanes were reborn from the pool
+        for yg, ye in zip(ys_g, ys_e):
+            for a, b in zip(yg, ye):
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        for a, b in zip(_state_tensors(es_g[0]), _state_tensors(es_e[0])):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    elif case == "returned_unchanged":
+        returned = graph_runs(task, True)[0]
+        assert len(returned) == steps
+        for ts, copies in returned:
+            for t, c in zip(ts, copies):
+                torch.testing.assert_close(t, c, rtol=0, atol=0, equal_nan=True)
+    elif case == "hooks_once":
+        assert graph_runs(task, True)[3] == {"vars": steps, "init": 2} == graph_runs(task, False)[3]
+    elif case == "alternating":
+        _, ys_g, es_g, _, c_g = graph_runs(task, True, alternate=True)
+        _, ys_e, es_e, _, _ = graph_runs(task, False, alternate=True)
+        assert c_g[3:] == [1, 2 * 16 - 1, 1]
+        for yg, ye in zip(ys_g, ys_e):
+            for a, b in zip(yg, ye):
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        for sg, se in zip(es_g, es_e):
+            for a, b in zip(_state_tensors(sg), _state_tensors(se)):
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    else:
+        c_g, c_e = graph_runs(task, True)[4], graph_runs(task, False)[4]
+        k = KERNEL_MODULES.index(GRAPH_TASKS[task][2])
+        # A launch a step and one a segment's pool, whichever way the step ran.
+        assert c_g[:3] == c_e[:3] and c_g[k] == steps + 2
+        assert c_g[3:] == [1, steps - 1, 1] and c_e[3:] == [0, 0, steps]
+
+
+def test_step_graph_follows_a_swapped_grid(monkeypatch):
+    """A core whose ``grid`` is swapped (here for the other projection form)
+    gets a graph of its own, and both match the eager step bit for bit."""
+    import dataclasses
+
+    from gym_anm_tpu_torch.ops.projection import LanesProjector
+
+    def run(graph):
+        core = make_core(torch.float32, "cpu")
+        env = BatchedEnv(core, B, generator=torch.Generator().manual_seed(4))
+        if not graph:
+            env.step_fn = env._step_eager
+        G = np.concatenate([np.asarray(core.spec.gen_G), np.asarray(core.spec.des_G)], axis=0)
+        es, _ = env.reset()
+        c0, outs = _counters(), []
+        for form in ("running_min", "stacked"):
+            core.grid = dataclasses.replace(core.grid, projector=LanesProjector(G, "cpu", torch.float32, form=form))
+            for _ in range(3):
+                es, out = env.step(es, env.random_actions())
+                outs.append(out)
+        return outs, [b - a for a, b in zip(c0, _counters())]
+
+    monkeypatch.setattr(BatchedEnv, "_graph_device", "cpu")
+    monkeypatch.setattr(batched, "cuda_graph", HostGraph)
+    outs_g, c_g = run(True)
+    outs_e, _ = run(False)
+    assert c_g[3:] == [2, 2 * 2, 2]  # each grid: an eager warm-up, a capture and two replays
+    for a, b in zip(outs_g, outs_e):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("pf_method", ["scan", "tree_xla"])
+def test_step_graph_leaves_plain_solvers_eager(monkeypatch, pf_method):
+    """The plain solvers end their loops on a host read of the lanes'
+    convergence, which no graph holds: their steps run eagerly."""
+    monkeypatch.setattr(BatchedEnv, "_graph_device", "cpu")
+    monkeypatch.setattr(batched, "cuda_graph", HostGraph)
+    env = BatchedEnv(make_core(torch.float32, "cpu", pf_method=pf_method), B, auto_reset=True)
+    es, _ = env.reset()
+    c0 = _counters()
+    es, _ = env.rollout(es, 3)
+    assert [b - a for a, b in zip(c0, _counters())][3:] == [0, 0, 3]
+
+
+def test_every_kernel_module_is_registered():
+    """A replayed step adds its captured launches to the counter of every
+    module ``ops.KERNEL_MODULES`` names: each module of ``ops/`` that counts
+    its launches has to be there, or its launches under a graph go
+    uncounted."""
+    import pathlib
+
+    counting = sorted(
+        f.stem for f in pathlib.Path(ops.__file__).parent.glob("*.py") if "\nKERNEL_LAUNCHES = 0\n" in f.read_text()
+    )
+    assert counting == sorted(ops.KERNEL_MODULES)
+    assert all(hasattr(m, "KERNEL_LAUNCHES") for m in kernel_modules())
+
+
+def test_step_graph_without_auto_reset_draws_no_pool_index(monkeypatch):
+    """Without auto-reset a pool passed to ``step_fn`` is not drawn from:
+    the graphed steps leave the generator where the eager steps leave it,
+    and return the same values."""
+
+    def run(graph):
+        core = make_core(torch.float32, "cpu")
+        env = BatchedEnv(core, B, generator=torch.Generator().manual_seed(5))
+        step = env.step_fn if graph else env._step_eager
+        es, _ = env.reset()
+        pool, outs = env.fresh_states(), []
+        for _ in range(4):
+            es, out = step(es, env.random_actions(), fresh=pool)
+            outs.append(out)
+        return outs, env.generator.get_state()
+
+    monkeypatch.setattr(BatchedEnv, "_graph_device", "cpu")
+    monkeypatch.setattr(batched, "cuda_graph", HostGraph)
+    c0 = _counters()
+    outs_g, gen_g = run(True)
+    assert [b - a for a, b in zip(c0, _counters())][3:] == [1, 3, 1]  # a warm-up step, then three replays
+    outs_e, gen_e = run(False)
+    assert torch.equal(gen_g, gen_e)
+    for a, b in zip(outs_g, outs_e):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)

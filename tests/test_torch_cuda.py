@@ -36,7 +36,11 @@ has only PyTorch:
   chord product runs without TF32 when TF32 is on globally and matches a
   float64 product to float32 rounding; ``make_mesh`` over NCCL at world size 1;
 * the projection's stacked form equal to the running minimum bit for bit
-  on the card, box-slants within 2e-5, and the card's default form.
+  on the card, box-slants within 2e-5, and the card's default form;
+* ``BatchedEnv.step_fn`` replayed from its CUDA graph against the eager
+  step, bit for bit, at B=4096: two pool rollouts of ANM6Easy (``tree``) and
+  feeder33 (``fused``) with the same kernel launches, and one
+  ``PPOTrainer.train_step``.
 """
 
 import dataclasses
@@ -746,3 +750,73 @@ def test_cuda_projection_forms(name, dtype):
     torch.testing.assert_close(xb.cpu()[fin], xc[fin], rtol=0, atol=2e-5)
     torch.testing.assert_close(yb.cpu()[fin], yc[fin], rtol=0, atol=2e-5)
     assert GridTensors.from_spec(spec, "cuda", torch.float32).projector.form == projection_form("cuda")
+
+
+def _pool_rollouts(env_name, pf_method, eager, B=4096, segments=2):
+    """Two 64-step pool rollouts of the task at B from one seed, through the
+    graphed ``step_fn`` or the eager step: ``(final state, [(reward,
+    terminated)] a segment, K1/K2/K3 launches, graph replays)``."""
+    from gym_anm_tpu_torch.envs import batched
+
+    core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda", pf_method=pf_method)
+    env = BatchedEnv(core, B, generator=torch.Generator(device="cuda").manual_seed(7), auto_reset=True)
+    if eager:
+        env.step_fn = env._step_eager
+    es, _ = env.reset()
+    l0, r0 = _launches(), batched.STEP_GRAPH_REPLAYS
+    ys = []
+    for _ in range(segments):
+        es, y = env.rollout(es, 64)
+        ys.append(y)
+    torch.cuda.synchronize()
+    return es, ys, [b - a for a, b in zip(l0, _launches())], batched.STEP_GRAPH_REPLAYS - r0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_name, pf_method, k", [("anm6easy", "tree", 0), ("feeder33", "fused", 2)],
+                         ids=["anm6easy-tree", "feeder33-fused"])
+def test_cuda_step_graph_rollout_matches_eager(env_name, pf_method, k):
+    """Two pool rollouts at B=4096 replayed from the step's CUDA graph equal
+    the eager step's bit for bit (rewards, terminations, every field of the
+    final state), and launch the path's kernel as often: once a step and once
+    a segment's pool (and once a reset attempt)."""
+    _need_cuda()
+    from gym_anm_tpu_torch.envs.batched import _state_tensors
+
+    es_g, ys_g, launches_g, replays = _pool_rollouts(env_name, pf_method, eager=False)
+    es_e, ys_e, launches_e, none = _pool_rollouts(env_name, pf_method, eager=True)
+    assert replays == 2 * 64 - 1 and none == 0  # the first step warms up eagerly
+    for yg, ye in zip(ys_g, ys_e):
+        for a, b in zip(yg, ye):
+            _assert_same(a, b)
+    for a, b in zip(_state_tensors(es_g), _state_tensors(es_e)):
+        _assert_same(a, b)
+    assert launches_g == launches_e and launches_g[k] >= 2 * 64 + 2
+    assert sum(launches_g) == launches_g[k]
+
+
+@pytest.mark.gpu
+def test_cuda_ppo_train_step_through_the_step_graph_matches_eager():
+    """One ``PPOTrainer.train_step`` (ANM6Easy ``tree``, B=4096, a policy
+    forward between steps) gives the same metrics and weights whether its
+    rollout replays the step's graph or runs the eager step."""
+    _need_cuda()
+    from gym_anm_tpu_torch.envs import batched
+    from gym_anm_tpu_torch.rl.ppo import PPOTrainer
+
+    def run(eager):
+        trainer = PPOTrainer(make_core(torch.float32, "cuda"), 4096, seed=3)
+        if eager:
+            trainer.env.step_fn = trainer.env._step_eager
+        r0 = batched.STEP_GRAPH_REPLAYS
+        _, metrics = trainer.train_step(trainer.init_envs())
+        torch.cuda.synchronize()
+        return metrics, trainer.model.state_dict(), batched.STEP_GRAPH_REPLAYS - r0
+
+    m_g, w_g, replays = run(False)
+    m_e, w_e, none = run(True)
+    assert replays == 63 and none == 0
+    for name in m_g:
+        _assert_same(m_g[name], m_e[name])
+    for name in w_g:
+        _assert_same(w_g[name], w_e[name])

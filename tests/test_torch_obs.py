@@ -78,7 +78,8 @@ def _random_sim(spec, seed=0):
 def test_pack_observables_and_gather_match_jax_f64(name):
     spec, jspec = _specs(name)
     sim, aux = _random_sim(spec)
-    ours = pack_observables(spec, sim_state_from_numpy(sim, "cpu", torch.float64), torch.tensor(aux))
+    bus_sorted = torch.as_tensor(np.asarray(spec.bus_sorted, dtype=np.int64))
+    ours = pack_observables(spec, sim_state_from_numpy(sim, "cpu", torch.float64), torch.tensor(aux), bus_sorted)
     theirs = np.asarray(jax_pack(jspec, JaxSimState(**{k: jnp.asarray(v) for k, v in sim.items()}), aux))
     assert ours.shape == theirs.shape == (B, sum(len(v) for v in packed_ids(spec, K).values()))
     np.testing.assert_allclose(ours.numpy(), theirs, rtol=0, atol=1e-12)
