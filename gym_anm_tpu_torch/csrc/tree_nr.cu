@@ -42,7 +42,10 @@
 //   frozen lanes updating nothing (the TPU kernel's whole-tile early exit),
 //   so every barrier and vote is warp-uniform;
 // * the mismatch norm is a team max with an explicit NaN flag (fmaxf drops
-//   NaN), so a NaN lane freezes and is never reported converged.
+//   NaN), so a NaN lane freezes and is never reported converged;
+// * each lane's first thread adds the lane's iterations, and whether it
+//   ended at the budget unconverged, to the process's device counters, so a
+//   replayed CUDA graph counts too.
 //
 // What bounds it now: not bytes (a lane reads p, q and writes V, 16 S bytes:
 // 9.2 MB at S = 140, B = 4096, 3 us at 3.35 TB/s) nor operations
@@ -111,6 +114,7 @@ struct Args {
   float* v_im;         // [S, B]
   float* diff;         // [B]
   int* n_iter;         // [B]
+  unsigned long long* counts;  // [2] the process's counters
 };
 
 // The schedule as the block's shared copy holds it.
@@ -430,6 +434,12 @@ tree_nr_kernel(Args a) {
       ++it;
     }
   }
+  // The process's counters: the lane's NR iterations, and whether it ended
+  // at the budget unconverged.
+  if (valid && tm.t == 0) {
+    atomicAdd(&a.counts[0], (unsigned long long)it);
+    if (it == a.max_iter && !(diff <= a.x_tol)) atomicAdd(&a.counts[1], 1ull);
+  }
   if (!valid) return;
   for (int s = tm.t; s < S; s += T) {
     a.v_re[(size_t)s * a.B + b] = ln.at(VR, s);
@@ -468,16 +478,17 @@ extern "C" int tree_nr_geometry(int S, int maxC, int n_levels, int* out) {
 
 // p, q, th_w, vm_w, v_re, v_im: [S, B] (th_w and vm_w both null for a cold
 // start); ycols: [S, 8]; par: [S]; children: [maxC, S]; levels:
-// [n_levels, 2]; diff, n_iter: [B].  All device pointers; `stream` is a
-// cudaStream_t.
+// [n_levels, 2]; diff, n_iter: [B]; counts: [2], to which the launch adds
+// the lanes' iterations and the lanes that ended at max_iter unconverged.
+// All device pointers; `stream` is a cudaStream_t.
 extern "C" int tree_nr_solve_f32(const float* p, const float* q, const float* th_w, const float* vm_w,
                                  const float* ycols, const int* par, const int* children, const int* levels,
                                  int S, int maxC, int n_levels, int B, float x_tol, int max_iter, float* v_re,
-                                 float* v_im, float* diff, int* n_iter, void* stream) {
+                                 float* v_im, float* diff, int* n_iter, unsigned long long* counts, void* stream) {
   if (!valid_sizes(S, maxC, n_levels) || B <= 0 || (th_w == nullptr) != (vm_w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{p, q, th_w, vm_w, ycols, par, children, levels, S, maxC, n_levels, B, max_iter, x_tol,
-               v_re, v_im, diff, n_iter};
+               v_re, v_im, diff, n_iter, counts};
   const auto st = static_cast<cudaStream_t>(stream);
   nrcore::Geometry g;
   cudaError_t err;

@@ -31,7 +31,7 @@ from ..core.env_core import EnvCore, EnvState, StepOut, select_env
 from ..core.state import SIM_FIELDS, SimState
 from ..core.transition import capturable, resolve_solver_path
 from ..errors import EnvInitializationError
-from ..ops import kernel_modules
+from ..ops import host_counters
 
 # How this process's BatchedEnv steps ran: graphs captured, steps replayed
 # from a graph, and steps run eagerly (a graph's warm-up step included).
@@ -133,8 +133,9 @@ class StepGraph:
     matched by identity: a returned state changed in place is not copied in
     again.  The first call runs eagerly (it loads the kernels and makes the
     libraries' handles) and the second captures.  The capture runs the host
-    code once, so the kernels' ``KERNEL_LAUNCHES`` count its launches: they
-    are taken back, and each replay adds them again.
+    code once, so the kernels' host counters (``ops.HOST_COUNTERS``: their
+    launches, K1's lane-solves) count its launches: they are taken back, and
+    each replay adds them again.
     """
 
     def __init__(self, env: "BatchedEnv"):
@@ -162,8 +163,8 @@ class StepGraph:
             self.pool.copy(self.pool_views, _state_tensors(fresh))
             self.pool_src = fresh
         self.replay()
-        for module, n in self.launches:
-            module.KERNEL_LAUNCHES += n
+        for module, name, n in self.counts:
+            setattr(module, name, getattr(module, name) + n)
         STEP_GRAPH_REPLAYS += 1
         self.last = _env_state(self.state.views(self.state_buf.clone()))
         blocks = [packing.views(buf.clone()) for packing, buf in zip(self.out, self.out_bufs)]
@@ -183,15 +184,15 @@ class StepGraph:
             self.idx = torch.zeros((self.env.batch_size,), dtype=torch.int64, device=dev)
             self.pool = _Packing(_state_tensors(fresh))
             self.pool_views = self.pool.views(buf(self.pool))
-        modules = kernel_modules()
-        before = [m.KERNEL_LAUNCHES for m in modules]
+        counters = host_counters()
+        before = [getattr(module, name) for module, name in counters]
         self.replay = cuda_graph(self._run)
-        self.launches = []
-        for module, n0 in zip(modules, before):
-            n = module.KERNEL_LAUNCHES - n0
+        self.counts = []
+        for (module, name), n0 in zip(counters, before):
+            n = getattr(module, name) - n0
             if n:
-                module.KERNEL_LAUNCHES -= n
-                self.launches.append((module, n))
+                setattr(module, name, n0)
+                self.counts.append((module, name, n))
         STEP_GRAPH_CAPTURES += 1
 
     def _run(self):

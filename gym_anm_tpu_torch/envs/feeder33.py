@@ -50,7 +50,9 @@ def make_core(
     ``warm_start`` warm-starts each step's solve from the previous step's
     voltages (every method but the fused ones, off by default).  ``network`` replaces the
     33-bus feeder with another radial network dict under the same dynamics
-    (the 141-bus task, ``envs/feeder141.py``)."""
+    (the 141-bus task, ``envs/feeder141.py``; Baran and Wu's feeder,
+    ``envs/baranwu33.py``).  An initial state's reactive loads take each
+    load's own Q/P ratio."""
     from ..core.env_core import EnvCore
     from ..core.grid import build_grid
     from ..core.obs import state_values_spec
@@ -62,6 +64,7 @@ def make_core(
     device = torch.device(device)
     t = lambda a: torch.as_tensor(np.asarray(a, dtype=np_dtype), device=device)
     load_scale = t(-np.asarray(spec.load_p_min) * spec.baseMVA)
+    load_qp = t(spec.load_qp)
     pv_scale = t(np.asarray(spec.gen_p_max) * spec.baseMVA)
     soc_max_mwh = t(np.asarray(spec.des_soc_max) * spec.baseMVA)
     load_pos = torch.as_tensor(np.asarray(spec.load_pos, dtype=np.int64), device=device)
@@ -79,7 +82,7 @@ def make_core(
         soc = uniform(generator, (B, n_des), 0.0, 1.0) * soc_max_mwh
         s = torch.zeros((B, 2 * n_dev + n_des + n_gen + K), dtype=dtype, device=device)
         s[:, load_pos] = loads
-        s[:, n_dev + load_pos] = loads * 0.25
+        s[:, n_dev + load_pos] = loads * load_qp
         s[:, gen_pos] = pots
         s[:, 2 * n_dev + n_des : 2 * n_dev + n_des + n_gen] = pots
         s[:, 2 * n_dev : 2 * n_dev + n_des] = soc

@@ -51,7 +51,7 @@ class Feeder33Env(ANMEnv):
         loads = -self._load_scale * frac * self.np_random.uniform(0.3, 0.9, spec.n_load)
         pos = np.asarray(spec.load_pos)
         state[pos] = loads
-        state[n_dev + pos] = loads * 0.25
+        state[n_dev + pos] = loads * np.asarray(spec.load_qp)
         pots = self._pv_scale * self.np_random.uniform(0.2, 1.0, n_gen)
         state[np.asarray(spec.gen_pos)] = pots
         state[2 * n_dev + n_des :][:n_gen] = pots

@@ -17,6 +17,7 @@ ENTRY_POINTS = {
     "ANM6Easy-v0": "gym_anm_tpu_torch.envs.anm6.anm6_easy_gym:ANM6Easy",
     "ANMFeeder33-v0": "gym_anm_tpu_torch.envs.feeder33_gym:Feeder33Env",
     "ANMFeeder141-v0": "gym_anm_tpu_torch.envs.feeder141_gym:Feeder141Env",
+    "ANMBaranWu33-v0": "gym_anm_tpu_torch.envs.baranwu33_gym:Baranwu33Env",
 }
 
 for _name, _entry_point in ENTRY_POINTS.items():

@@ -6,8 +6,17 @@ import importlib
 # The modules of the hand-written kernels.  Each counts its launches in
 # ``KERNEL_LAUNCHES``, which a CUDA graph's replay has to add to itself.
 KERNEL_MODULES = ("nr_cuda", "step_cuda", "tree_cuda")
+# The host counters a kernel module may keep, each of which a replay adds to
+# itself: its launches and (the tree-NR kernel's) its lane-solves.
+HOST_COUNTERS = ("KERNEL_LAUNCHES", "LANE_SOLVES")
 
 
 def kernel_modules() -> list:
     """The modules :data:`KERNEL_MODULES` names."""
     return [importlib.import_module("." + name, __name__) for name in KERNEL_MODULES]
+
+
+def host_counters() -> list:
+    """``(module, name)`` of each of :data:`HOST_COUNTERS` that a kernel
+    module keeps."""
+    return [(m, name) for m in kernel_modules() for name in HOST_COUNTERS if hasattr(m, name)]

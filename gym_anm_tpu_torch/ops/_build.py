@@ -105,6 +105,7 @@ def load_library() -> ctypes.CDLL:
                 vp, vp, vp, vp,  # ycols, par, children, levels
                 ci, ci, ci, ci, cf, ci,  # S, maxC, n_levels, B, x_tol, max_iter
                 vp, vp, vp, vp,  # v_re, v_im, diff, n_iter
+                vp,  # counts [2]
                 vp,  # stream
             ]
             lib.tree_nr_solve_f32.restype = ci

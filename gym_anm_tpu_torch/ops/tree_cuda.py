@@ -53,6 +53,50 @@ _YC_HASPAR, _YC_PAD = 6, 7  # non-slack-parent mask; pad-slot mask
 
 # Launches of the CUDA kernel in this process (one per successful launch).
 KERNEL_LAUNCHES = 0
+# Lane-solves of the tree-NR solve in this process, the kernel's and the
+# plain version's (B a solve).  Like KERNEL_LAUNCHES, a host count that a
+# CUDA graph's replay adds its captured solves to.
+LANE_SOLVES = 0
+# The Newton iterations of those lane-solves, on the devices that solved
+# them: per device an int64 [2], the iterations summed over lanes and the
+# lanes that ended at the NR budget unconverged.  The kernel adds to them in
+# its epilogue, so a replayed CUDA graph counts without a host read; the
+# plain version adds the same in PyTorch.
+_ITERATION_COUNTS: dict = {}
+
+
+def iteration_counts(device) -> torch.Tensor:
+    """``device``'s iteration counters (see ``_ITERATION_COUNTS``), made on
+    first use.  Building a :class:`DeviceSchedule` makes them, before any
+    CUDA graph that solves on the device can be captured (a capture would
+    record their zeroing into the graph)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counts = _ITERATION_COUNTS.get(device)
+    if counts is None:
+        with torch.inference_mode(False):
+            counts = _ITERATION_COUNTS[device] = torch.zeros((2,), dtype=torch.int64, device=device)
+    return counts
+
+
+def read_iteration_counts() -> tuple:
+    """``(iterations, budget_hits)`` of every lane-solve in this process, on
+    every device (a host read of each device's counters)."""
+    iterations = budget_hits = 0
+    for counts in _ITERATION_COUNTS.values():
+        n, hits = counts.tolist()
+        iterations, budget_hits = iterations + n, budget_hits + hits
+    return iterations, budget_hits
+
+
+def _count_plain(n_iter, diff, x_tol, max_iter):
+    """The kernel's epilogue count, in PyTorch, for a plain solve."""
+    global LANE_SOLVES
+    counts = iteration_counts(n_iter.device)
+    counts[0] += n_iter.sum()
+    counts[1] += ((n_iter == max_iter) & ~(diff <= x_tol)).sum()
+    LANE_SOLVES += n_iter.shape[0]
 
 
 def tree_nr_flops_per_lane(S: int, n_iter: int, warm: bool = False) -> int:
@@ -234,6 +278,7 @@ class DeviceSchedule:
         if sched is None:
             return None
         device = torch.device(device)
+        iteration_counts(device)
         m = spec.n_bus - 1
         par, children = gather_tables(sched)
         levels = np.asarray([(off, W) for off, W, _ in sched.levels], dtype=np.int32)
@@ -270,7 +315,8 @@ def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init
     ``(theta [S, B], vm [S, B])`` in slot order (:func:`warm_point`); each
     lane starts from it where its mismatch is finite and smaller than the
     flat start's.  Returns ``(v_re [S, B], v_im [S, B], diff [B], n_iter [B]
-    int32)`` in slot order.
+    int32)`` in slot order, and adds the solve to the process's counters as
+    the kernel does.
     """
     sched = ds.sched
     S, B = p.shape
@@ -407,6 +453,7 @@ def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init
         new = eval_point(theta, vm)
         # Frozen lanes keep their carried values (their point did not move).
         ev = tuple(torch.where(active, a, b) for a, b in zip(new, ev))
+    _count_plain(n_iter, ev[-1], x_tol, max_iter)
     return ev[0], ev[1], ev[-1], n_iter
 
 
@@ -442,9 +489,11 @@ def solve_pfe_tree_cuda(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=
     """Launch the CUDA tree-NR kernel (``csrc/tree_nr.cu``).
 
     Same contract as :func:`solve_pfe_tree_plain`, for contiguous float32
-    CUDA tensors; raises on anything else and when the launch fails.
+    CUDA tensors; raises on anything else and when the launch fails.  The
+    launch adds the lanes' iterations and budget hits to the device's
+    :func:`iteration_counts` itself.
     """
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, LANE_SOLVES
     from ._build import load_library
 
     _check_kernel_args(ds, p, q, init)
@@ -461,11 +510,12 @@ def solve_pfe_tree_cuda(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=
         ds.par.data_ptr(), ds.children.data_ptr(), ds.levels.data_ptr(),
         S, ds.sched.maxC, ds.levels.shape[0], B, ctypes.c_float(x_tol), int(max_iter),
         v_re.data_ptr(), v_im.data_ptr(), diff.data_ptr(), n_iter.data_ptr(),
-        stream,
+        iteration_counts(p.device).data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError("tree-NR kernel launch failed: CUDA error %d" % rc)
     KERNEL_LAUNCHES += 1
+    LANE_SOLVES += B
     return v_re, v_im, diff, n_iter
 
 

@@ -197,14 +197,14 @@ class HostGraph:
         self.fn = fn
 
     def __call__(self):
-        counts = [m.KERNEL_LAUNCHES for m in KERNEL_MODULES]
+        counts = [(m, name, getattr(m, name)) for m, name in ops.host_counters()]
         self.fn()
-        for m, n in zip(KERNEL_MODULES, counts):
-            m.KERNEL_LAUNCHES = n
+        for m, name, n in counts:
+            setattr(m, name, n)
 
 
 def _counters():
-    return [m.KERNEL_LAUNCHES for m in KERNEL_MODULES] + [
+    return [m.KERNEL_LAUNCHES for m in KERNEL_MODULES] + [tree_cuda.LANE_SOLVES] + [
         batched.STEP_GRAPH_CAPTURES, batched.STEP_GRAPH_REPLAYS, batched.STEP_EAGER_CALLS]
 
 
@@ -304,7 +304,7 @@ def test_step_graph_runner_on_host(graph_runs, task, case):
     elif case == "alternating":
         _, ys_g, es_g, _, c_g = graph_runs(task, True, alternate=True)
         _, ys_e, es_e, _, _ = graph_runs(task, False, alternate=True)
-        assert c_g[3:] == [1, 2 * 16 - 1, 1]
+        assert c_g[4:] == [1, 2 * 16 - 1, 1]
         for yg, ye in zip(ys_g, ys_e):
             for a, b in zip(yg, ye):
                 torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
@@ -315,8 +315,9 @@ def test_step_graph_runner_on_host(graph_runs, task, case):
         c_g, c_e = graph_runs(task, True)[4], graph_runs(task, False)[4]
         k = KERNEL_MODULES.index(GRAPH_TASKS[task][2])
         # A launch a step and one a segment's pool, whichever way the step ran.
-        assert c_g[:3] == c_e[:3] and c_g[k] == steps + 2
-        assert c_g[3:] == [1, steps - 1, 1] and c_e[3:] == [0, 0, steps]
+        assert c_g[:4] == c_e[:4] and c_g[k] == steps + 2
+        assert c_g[3] == (B * (steps + 2) if GRAPH_TASKS[task][2] is tree_cuda else 0)  # tree lane-solves
+        assert c_g[4:] == [1, steps - 1, 1] and c_e[4:] == [0, 0, steps]
 
 
 def test_step_graph_follows_a_swapped_grid(monkeypatch):
@@ -345,7 +346,7 @@ def test_step_graph_follows_a_swapped_grid(monkeypatch):
     monkeypatch.setattr(batched, "cuda_graph", HostGraph)
     outs_g, c_g = run(True)
     outs_e, _ = run(False)
-    assert c_g[3:] == [2, 2 * 2, 2]  # each grid: an eager warm-up, a capture and two replays
+    assert c_g[4:] == [2, 2 * 2, 2]  # each grid: an eager warm-up, a capture and two replays
     for a, b in zip(outs_g, outs_e):
         for x, y in zip(a, b):
             torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
@@ -361,7 +362,7 @@ def test_step_graph_leaves_plain_solvers_eager(monkeypatch, pf_method):
     es, _ = env.reset()
     c0 = _counters()
     es, _ = env.rollout(es, 3)
-    assert [b - a for a, b in zip(c0, _counters())][3:] == [0, 0, 3]
+    assert [b - a for a, b in zip(c0, _counters())][4:] == [0, 0, 3]
 
 
 def test_every_kernel_module_is_registered():
@@ -398,7 +399,7 @@ def test_step_graph_without_auto_reset_draws_no_pool_index(monkeypatch):
     monkeypatch.setattr(batched, "cuda_graph", HostGraph)
     c0 = _counters()
     outs_g, gen_g = run(True)
-    assert [b - a for a, b in zip(c0, _counters())][3:] == [1, 3, 1]  # a warm-up step, then three replays
+    assert [b - a for a, b in zip(c0, _counters())][4:] == [1, 3, 1]  # a warm-up step, then three replays
     outs_e, gen_e = run(False)
     assert torch.equal(gen_g, gen_e)
     for a, b in zip(outs_g, outs_e):

@@ -145,6 +145,7 @@ GYMNASIUM_MODULES = (
     "gym_anm_tpu_torch.envs.anm6.anm6_easy_gym",
     "gym_anm_tpu_torch.envs.feeder33_gym",
     "gym_anm_tpu_torch.envs.feeder141_gym",
+    "gym_anm_tpu_torch.envs.baranwu33_gym",
     "gym_anm_tpu_torch.envs.vector",
     "gym_anm_tpu_torch.envs.registration",
 )
@@ -216,11 +217,12 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from gym_anm_tpu_torch.core import state
-    from gym_anm_tpu_torch.envs import feeder33, feeder141
+    from gym_anm_tpu_torch.envs import baranwu33, feeder33, feeder141
     from gym_anm_tpu_torch.envs.anm6 import anm6_easy
 
     from gym_anm_tpu_torch.envs.anm_env import ANMEnv
 
-    for fn in (anm6_easy.make_core, feeder33.make_core, feeder141.make_core, state.zeros_state, state.sim_state_from_numpy,
-               state.env_state_from_numpy, ANMEnv, anm6_easy.ANM6Easy, feeder33.Feeder33Env, feeder141.Feeder141Env):
+    for fn in (anm6_easy.make_core, feeder33.make_core, feeder141.make_core, baranwu33.make_core, state.zeros_state,
+               state.sim_state_from_numpy, state.env_state_from_numpy, ANMEnv, anm6_easy.ANM6Easy, feeder33.Feeder33Env,
+               feeder141.Feeder141Env, baranwu33.Baranwu33Env):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

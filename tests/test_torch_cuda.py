@@ -40,7 +40,11 @@ has only PyTorch:
 * ``BatchedEnv.step_fn`` replayed from its CUDA graph against the eager
   step, bit for bit, at B=4096: two pool rollouts of ANM6Easy (``tree``) and
   feeder33 (``fused``) with the same kernel launches, and one
-  ``PPOTrainer.train_step``.
+  ``PPOTrainer.train_step``;
+* K1's iteration counters: a launch adds what the plain twin's count of the
+  same solve adds; graphed pool rollouts of ANM6Easy and Baran and Wu's
+  feeder add what the eager rollouts' launches returned, and equal the eager
+  steps bit for bit.
 """
 
 import dataclasses
@@ -820,3 +824,86 @@ def test_cuda_ppo_train_step_through_the_step_graph_matches_eager():
         _assert_same(m_g[name], m_e[name])
     for name in w_g:
         _assert_same(w_g[name], w_e[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, amp", [("anm6", 0.3), ("feeder33", 0.05)])
+def test_cuda_kernel_counts_its_iterations(name, amp):
+    """K1 adds its lanes' NR iterations and budget hits (a NaN lane and a
+    diverging one among 1000) to the card's counters, as the plain twin's
+    count of the same solve, and counts 1000 lane-solves; the outputs of both
+    agree bit for bit."""
+    _need_cuda()
+    ds, pT, qT = _slot_inputs(name, 1000, amp)
+    pT[1, 0] = float("nan")
+    pT[:, 1] *= 60.0
+    counts = tree_cuda.iteration_counts("cuda")
+    c0, s0 = counts.clone(), tree_cuda.LANE_SOLVES
+    k = tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, x_tol=1e-5, max_iter=2)
+    c1 = counts.clone()
+    pl = tree_cuda.solve_pfe_tree_plain(ds, pT, qT, x_tol=1e-5, max_iter=2)
+    c2 = counts.clone()
+    hits = int(((k[3] == 2) & ~(k[2] <= 1e-5)).sum())
+    assert (c1 - c0).tolist() == [int(k[3].sum()), hits] == (c2 - c1).tolist() and hits > 0
+    assert tree_cuda.LANE_SOLVES == s0 + 2000
+    for a, b in zip(k, pl):
+        _assert_same(a, b)
+
+
+def _counted_pool_rollouts(env_name, eager):
+    """Two 64-step pool rollouts of the task's ``tree`` path at B=4096 from
+    one seed: ``(final state, [(reward, terminated)] a segment, the
+    counters' gain [iterations, budget hits, lane-solves], the n_iter each
+    K1 launch returned summed, with the budget hits (eager only))``."""
+    from gym_anm_tpu_torch.envs.baranwu33 import make_core as baranwu33_make_core
+
+    make = {"anm6easy": make_core, "baranwu33": baranwu33_make_core}[env_name]
+    core = make(torch.float32, "cuda", pf_method="tree")
+    env = BatchedEnv(core, 4096, generator=torch.Generator(device="cuda").manual_seed(7), auto_reset=True)
+    returned = []
+    if eager:
+        env.step_fn = env._step_eager
+        kernel = tree_cuda.solve_pfe_tree_cuda
+
+        def spy(ds, p, q, x_tol=1e-5, max_iter=10, init=None):
+            out = kernel(ds, p, q, x_tol=x_tol, max_iter=max_iter, init=init)
+            returned.append(torch.stack([out[3].sum(), ((out[3] == max_iter) & ~(out[2] <= x_tol)).sum()]))
+            return out
+
+        tree_cuda.solve_pfe_tree_cuda = spy
+    try:
+        es, _ = env.reset()
+        c0 = tree_cuda.iteration_counts("cuda").tolist() + [tree_cuda.LANE_SOLVES]
+        ys = []
+        for _ in range(2):
+            es, y = env.rollout(es, 64)
+            ys.append(y)
+        torch.cuda.synchronize()
+        c1 = tree_cuda.iteration_counts("cuda").tolist() + [tree_cuda.LANE_SOLVES]
+    finally:
+        if eager:
+            tree_cuda.solve_pfe_tree_cuda = kernel
+    n_reset = len(returned) - 2 * (64 + 1) if eager else 0
+    summed = torch.stack(returned[n_reset:]).sum(0).tolist() if eager else None
+    return es, ys, [b - a for a, b in zip(c0, c1)], summed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_name", ["anm6easy", "baranwu33"])
+def test_cuda_iteration_counts_through_the_step_graph(env_name):
+    """Two pool rollouts replayed from the step's CUDA graph add to K1's
+    counters what the eager rollouts' launches returned (the iterations
+    summed, the budget hits, B lane-solves a launch), and their steps equal
+    the eager steps bit for bit with the counters on."""
+    _need_cuda()
+    from gym_anm_tpu_torch.envs.batched import _state_tensors
+
+    es_g, ys_g, counted_g, _ = _counted_pool_rollouts(env_name, eager=False)
+    es_e, ys_e, counted_e, summed = _counted_pool_rollouts(env_name, eager=True)
+    assert counted_g == counted_e == summed + [4096 * 2 * (64 + 1)]
+    assert 1.0 <= counted_g[0] / counted_g[2] <= 6.0
+    for yg, ye in zip(ys_g, ys_e):
+        for a, b in zip(yg, ye):
+            _assert_same(a, b)
+    for a, b in zip(_state_tensors(es_g), _state_tensors(es_e)):
+        _assert_same(a, b)
