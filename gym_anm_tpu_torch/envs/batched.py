@@ -107,6 +107,29 @@ def cuda_graph(fn):
     return graph.replay
 
 
+def counted_graph(fn):
+    """:func:`cuda_graph` of ``fn``, with the kernels' host counters
+    (``ops.HOST_COUNTERS``: their launches, K1's lane-solves) kept exact.
+    The capture runs ``fn``'s host code once, so the counts it made are
+    taken back, and each call of the returned replay adds them again."""
+    counters = host_counters()
+    before = [getattr(module, name) for module, name in counters]
+    graph = cuda_graph(fn)
+    counts = []
+    for (module, name), n0 in zip(counters, before):
+        n = getattr(module, name) - n0
+        if n:
+            setattr(module, name, n0)
+            counts.append((module, name, n))
+
+    def replay():
+        graph()
+        for module, name, n in counts:
+            setattr(module, name, getattr(module, name) + n)
+
+    return replay
+
+
 class StepGraph:
     """One :class:`BatchedEnv` step replayed from a CUDA graph, for one shape
     of inputs.
@@ -132,10 +155,8 @@ class StepGraph:
     the whole state alive: clone a field to keep it alone.  A state is
     matched by identity: a returned state changed in place is not copied in
     again.  The first call runs eagerly (it loads the kernels and makes the
-    libraries' handles) and the second captures.  The capture runs the host
-    code once, so the kernels' host counters (``ops.HOST_COUNTERS``: their
-    launches, K1's lane-solves) count its launches: they are taken back, and
-    each replay adds them again.
+    libraries' handles) and the second captures (:func:`counted_graph`, which
+    keeps the kernels' host counters exact).
     """
 
     def __init__(self, env: "BatchedEnv"):
@@ -163,8 +184,6 @@ class StepGraph:
             self.pool.copy(self.pool_views, _state_tensors(fresh))
             self.pool_src = fresh
         self.replay()
-        for module, name, n in self.counts:
-            setattr(module, name, getattr(module, name) + n)
         STEP_GRAPH_REPLAYS += 1
         self.last = _env_state(self.state.views(self.state_buf.clone()))
         blocks = [packing.views(buf.clone()) for packing, buf in zip(self.out, self.out_bufs)]
@@ -184,15 +203,7 @@ class StepGraph:
             self.idx = torch.zeros((self.env.batch_size,), dtype=torch.int64, device=dev)
             self.pool = _Packing(_state_tensors(fresh))
             self.pool_views = self.pool.views(buf(self.pool))
-        counters = host_counters()
-        before = [getattr(module, name) for module, name in counters]
-        self.replay = cuda_graph(self._run)
-        self.counts = []
-        for (module, name), n0 in zip(counters, before):
-            n = getattr(module, name) - n0
-            if n:
-                setattr(module, name, n0)
-                self.counts.append((module, name, n))
+        self.replay = counted_graph(self._run)
         STEP_GRAPH_CAPTURES += 1
 
     def _run(self):

@@ -44,6 +44,8 @@ from gym_anm_tpu_torch.errors import EnvInitializationError
 from gym_anm_tpu_torch import ops
 from gym_anm_tpu_torch.ops import kernel_modules, step_cuda, tree_cuda
 
+from tests.graph_standin import HostGraph
+
 
 B = 64
 # Two buses: a load of -3000 MW across the 0.1 p.u. line diverges, -20 MW
@@ -184,23 +186,6 @@ def test_reset_strict_raises_when_every_attempt_fails():
 
 KERNEL_MODULES = kernel_modules()
 GRAPH_TASKS = {"anm6easy": ("tree", "solve_pfe_tree", tree_cuda), "feeder33": ("fused", "fused_transition", step_cuda)}
-
-
-class HostGraph:
-    """Stands in for a CUDA graph on the CPU (``batched.cuda_graph``): the
-    capture runs the step's host code once, as ``torch.cuda.graph`` does;
-    each replay runs it again on the static buffers and leaves the kernels'
-    launch counters as they were, as a replay does."""
-
-    def __init__(self, fn):
-        fn()
-        self.fn = fn
-
-    def __call__(self):
-        counts = [(m, name, getattr(m, name)) for m, name in ops.host_counters()]
-        self.fn()
-        for m, name, n in counts:
-            setattr(m, name, n)
 
 
 def _counters():

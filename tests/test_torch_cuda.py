@@ -26,7 +26,9 @@ has only PyTorch:
   queued;
 * the lockstep core of ``ANMVectorEnv`` (``envs/vector_core.py``) on the
   card against the CPU from the same draws, reset lanes included, launching
-  the tree kernel twice a step; the one-lane float64 step of ``ANMEnv``
+  the tree kernel twice a step; its steps replayed from their CUDA graph
+  against the eager steps, bit for bit, at B=4096 on ANM6Easy and feeder33
+  (``tree``); the one-lane float64 step of ``ANMEnv``
   (``envs/single_core.py``) on the card against the CPU;
 * the MPC agents' batched float64 solve (dense and banded) on the card
   against the same solve on the CPU, and a dense agent closing the loop of
@@ -418,7 +420,9 @@ def test_cuda_env_core_matches_cpu(pf_method, warm_start, counter, atol):
 def test_cuda_lockstep_matches_cpu():
     """The lockstep step on the card and on the CPU from the same draws (made
     on the CPU), every eighth lane reset at the first step; float32 rule as
-    in ``test_cuda_env_core_matches_cpu``'s tree case."""
+    in ``test_cuda_env_core_matches_cpu``'s tree case.  The card's steps run
+    through ``LockstepEnv.step``, whose hooks hand it the CPU's draws: the
+    first eagerly, the others replayed from its CUDA graph."""
     from gym_anm_tpu_torch.envs import vector_core
 
     _need_cuda()
@@ -426,16 +430,21 @@ def test_cuda_lockstep_matches_cpu():
     B, T = 512, 4
     gen = torch.Generator().manual_seed(0)
     s0 = cpu.init_state_fn(gen, B)
-    es_g, es_c = gpu.env_state_from_s0(s0.cuda()), cpu.env_state_from_s0(s0)
+    lock = vector_core.LockstepEnv(gpu, B)
     needs_c = torch.arange(B) % 8 == 0
-    needs_g = needs_c.cuda()
+    lock.es, lock.needs_reset, es_c = gpu.env_state_from_s0(s0.cuda()), needs_c.cuda(), cpu.env_state_from_s0(s0)
+    draws = {}
+    gpu.next_vars_fn = lambda s, generator: draws["vars"]
+    gpu.init_state_fn = lambda generator, batch_size: draws["s0"]
     actions = np.random.default_rng(0).uniform(cpu.action_low, cpu.action_high, (T, B, cpu.action_n))
-    before = tree_cuda.KERNEL_LAUNCHES
+    before, r0 = tree_cuda.KERNEL_LAUNCHES, vector_core.LOCKSTEP_GRAPH_REPLAYS
     for t in range(T):
         a = torch.tensor(actions[t], dtype=torch.float32)
         d = vector_core.draw(cpu, es_c, gen)
         es_c, vs_c = vector_core.step(cpu, es_c, needs_c, a, d.vars, d.fresh_s0)
-        es_g, vs_g = vector_core.step(gpu, es_g, needs_g, a.cuda(), d.vars.cuda(), d.fresh_s0.cuda())
+        draws.update(vars=d.vars.cuda(), s0=d.fresh_s0.cuda())
+        needs_g = lock.needs_reset
+        vs_g = lock.step(a.cuda())
         if t == 0:
             assert not vs_g.terminated[needs_g].any() and bool((vs_g.reward[needs_g] == 0).all())
         agree = vs_g.terminated.cpu() == vs_c.terminated
@@ -443,8 +452,51 @@ def test_cuda_lockstep_matches_cpu():
         live = agree & ~es_c.terminated
         torch.testing.assert_close(vs_g.obs.cpu()[live], vs_c.obs[live], rtol=1e-4, atol=1e-3)
         torch.testing.assert_close(vs_g.reward.cpu()[live], vs_c.reward[live], rtol=1e-4, atol=1e-3)
-        needs_c, needs_g = vs_c.terminated, vs_g.terminated
+        needs_c = vs_c.terminated
     assert tree_cuda.KERNEL_LAUNCHES == before + 2 * T
+    assert vector_core.LOCKSTEP_GRAPH_REPLAYS == r0 + T - 1
+
+
+def _lockstep_steps(env_name, graph_device, B=4096, T=64):
+    """``T`` ``LockstepEnv`` steps of the task on ``tree`` at B from NumPy
+    actions, one seed, the graph runner engaged (``graph_device`` "cuda") or
+    not (a device type nothing has): each step's outputs and state, the
+    final state, and the increments of K1's launches and lane-solves and of
+    the graph replays."""
+    from gym_anm_tpu_torch.envs import vector_core
+    from gym_anm_tpu_torch.envs.batched import _state_tensors
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(vector_core.LockstepEnv, "_graph_device", graph_device)
+        core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda", pf_method="tree")
+        lock = vector_core.LockstepEnv(core, B, seed=7)
+        lock.reset()
+        rng = np.random.default_rng(7)
+        counts = lambda: (tree_cuda.KERNEL_LAUNCHES, tree_cuda.LANE_SOLVES, vector_core.LOCKSTEP_GRAPH_REPLAYS)
+        c0, outs = counts(), []
+        for _ in range(T):
+            vs = lock.step(rng.uniform(core.action_low, core.action_high, (B, core.action_n)).astype(np.float32))
+            outs.append(list(vs) + _state_tensors(lock.es))
+        torch.cuda.synchronize()
+        return outs, [b - a for a, b in zip(c0, counts())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_name", ["anm6easy", "feeder33"])
+def test_cuda_lockstep_graph_matches_eager(env_name):
+    """64 ``LockstepEnv`` steps at B=4096 replayed from the step's CUDA graph
+    equal the eager steps bit for bit (observations, rewards, flags and every
+    field of each step's state, lanes reborn included), with K1 launched twice
+    a step either way."""
+    _need_cuda()
+    T, B = 64, 4096
+    outs_g, c_g = _lockstep_steps(env_name, "cuda", B, T)
+    outs_e, c_e = _lockstep_steps(env_name, "no-device", B, T)
+    assert c_g == [2 * T, 2 * B * T, T - 1] and c_e == [2 * T, 2 * B * T, 0]
+    assert bool(torch.stack([o[2] for o in outs_e[:-1]]).any())  # lanes terminated and were reborn
+    for g, e in zip(outs_g, outs_e):
+        for a, b in zip(g, e):
+            _assert_same(a, b)
 
 
 @pytest.mark.gpu
