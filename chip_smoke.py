@@ -1342,7 +1342,7 @@ def phase_gym_replay(core, es, smi):
     import tempfile
 
     from gym_anm_tpu_torch.envs.anm6.network import network
-    from gym_anm_tpu_torch.envs.batched import take_lanes
+    from gym_anm_tpu_torch.core.env_core import take_lanes
     from gym_anm_tpu_torch.envs.single_core import render_frame_args, render_init_args, step_lane
     from gym_anm_tpu_torch.render.replay import EpisodeRecorder
     from gym_anm_tpu_torch.simulator import Simulator

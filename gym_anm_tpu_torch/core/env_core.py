@@ -31,6 +31,7 @@ the state's, or a callable ``obs_fn`` of the state vector.
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -39,7 +40,7 @@ import torch
 from ..errors import EnvInitializationError
 from .grid import GridSpec, GridTensors
 from .obs import GatherSpec, compile_gather, pack_observables, state_values_spec
-from .state import SimState, select_state, zeros_state
+from .state import SIM_FIELDS, SimState, select_state, zeros_state
 from .transition import PF_METHODS, sim_reset, transition
 
 
@@ -68,6 +69,26 @@ class ResetOut(NamedTuple):
     state_vec: torch.Tensor
     failed: torch.Tensor  # True if every attempt failed
     n_tries: torch.Tensor
+
+
+_SIM_TENSORS = operator.attrgetter(*SIM_FIELDS)
+
+
+def state_tensors(es: EnvState) -> list:
+    """The tensors of ``es``: its SimState fields, ``aux``, ``terminated``
+    and ``state_vec``, in that order."""
+    return [*_SIM_TENSORS(es.sim), es.aux, es.terminated, es.state_vec]
+
+
+def state_from_tensors(ts) -> EnvState:
+    """The inverse of :func:`state_tensors`."""
+    n = len(SIM_FIELDS)
+    return EnvState(sim=SimState(*ts[:n]), aux=ts[n], terminated=ts[n + 1], state_vec=ts[n + 2])
+
+
+def take_lanes(es: EnvState, idx) -> EnvState:
+    """Lanes ``idx [B']`` of a batched state (a gather, no physics)."""
+    return state_from_tensors([t[idx] for t in state_tensors(es)])
 
 
 def _lanes(pred, x):

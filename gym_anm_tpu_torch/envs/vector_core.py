@@ -18,31 +18,30 @@ The draws (:func:`draw`) are kept apart from their use (:func:`step`):
 torch cannot reproduce ``jax.random``, so a test feeds :func:`step` the
 draws the JAX package made.
 
-On a CUDA device a step is some six hundred small kernels, and launching
-them one by one from the host takes several times their device time.  So
-:meth:`LockstepEnv.step` replays :func:`step` from a CUDA graph
-(:class:`LockstepGraph`) wherever the core solves in a kernel; the draws and
-the host copies stay eager.  The module counters
+On a CUDA device :meth:`LockstepEnv.step` replays :func:`step` from a CUDA
+graph (``core/graph.py``) wherever the core solves in a kernel; the draws
+and the host copies stay eager.  The module counters
 ``LOCKSTEP_GRAPH_CAPTURES``, ``LOCKSTEP_GRAPH_REPLAYS`` and
 ``LOCKSTEP_EAGER_CALLS`` count how the process's steps ran.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from . import batched
-from ..core.env_core import EnvCore, EnvState, select_env
-from ..core.transition import capturable, resolve_solver_path
+from ..core.env_core import EnvCore, EnvState, select_env, state_from_tensors, state_tensors
+from ..core.graph import GraphedStep, graph_key, graphed
 
 # How this process's LockstepEnv steps ran: graphs captured, steps replayed
 # from a graph, and steps run eagerly (a graph's warm-up step included).
 LOCKSTEP_GRAPH_CAPTURES = 0
 LOCKSTEP_GRAPH_REPLAYS = 0
 LOCKSTEP_EAGER_CALLS = 0
+_COUNTERS = (globals(), "LOCKSTEP_GRAPH_CAPTURES", "LOCKSTEP_GRAPH_REPLAYS", "LOCKSTEP_EAGER_CALLS")
 
 
 class VectorDraw(NamedTuple):
@@ -86,73 +85,12 @@ def _step_eager(core, es, needs_reset, actions, vars, fresh_s0):
     return step(core, es, needs_reset, actions, vars, fresh_s0)
 
 
-class LockstepGraph:
-    """One :func:`step` of a :class:`LockstepEnv` replayed from a CUDA graph,
-    for one shape of inputs.
-
-    The graph reads the carried state and ``needs_reset`` from one block and
-    the actions, vars and fresh initial states from another; it writes the
-    new state and ``terminated`` over the carried block and the observation
-    and reward into a block of its own.  A call copies the actions and draws
-    in, and the carried block only when ``es`` or ``needs_reset`` is not what
-    the previous call returned (matched by identity, as
-    :class:`~gym_anm_tpu_torch.envs.batched.StepGraph` matches its state),
-    replays, and returns the two blocks cloned (two copies), so that no later
-    replay writes into a tensor a call returned.  The returned state's fields
-    and ``terminated`` are views of one clone, the observation and reward of
-    the other.  The first call runs eagerly and the second captures
-    (:func:`~gym_anm_tpu_torch.envs.batched.counted_graph`).
-    """
-
-    def __init__(self, core: EnvCore):
-        self.core = core
-        self.grid = core.grid  # held, so that its id keys this graph alone
-        self.warm = False
-        self.replay = None
-        self.last = None  # (state, terminated) the previous call returned
-
-    def __call__(self, es: EnvState, needs_reset, actions, vars, fresh_s0):
-        global LOCKSTEP_GRAPH_REPLAYS
-        if not self.warm:
-            self.warm = True
-            return _step_eager(self.core, es, needs_reset, actions, vars, fresh_s0)
-        if self.replay is None:
-            self._capture(es, needs_reset, actions, vars, fresh_s0)
-        self.inputs.copy(self.input_views, [actions, vars, fresh_s0])
-        if self.last is None or es is not self.last[0] or needs_reset is not self.last[1]:
-            self.carried.copy(self.carried_views, batched._state_tensors(es) + [needs_reset])
-        self.replay()
-        LOCKSTEP_GRAPH_REPLAYS += 1
-        *state, terminated = self.carried.views(self.carried_buf.clone())
-        obs, reward = self.out.views(self.out_buf.clone())
-        self.last = (batched._env_state(state), terminated)
-        return self.last[0], VectorStep(obs=obs, reward=reward, terminated=terminated)
-
-    def _capture(self, es, needs_reset, actions, vars, fresh_s0):
-        global LOCKSTEP_GRAPH_CAPTURES
-        buf = lambda p: torch.zeros((p.nbytes,), dtype=torch.uint8, device=es.state_vec.device)
-        self.carried = batched._Packing(batched._state_tensors(es) + [needs_reset])
-        self.carried_buf = buf(self.carried)
-        self.carried_views = self.carried.views(self.carried_buf)
-        self.inputs = batched._Packing([actions, vars, fresh_s0])
-        self.input_views = self.inputs.views(buf(self.inputs))
-        self.out = None
-        self.replay = batched.counted_graph(self._run)
-        LOCKSTEP_GRAPH_CAPTURES += 1
-
-    def _run(self):
-        """The captured step: the observation and reward into their block,
-        allocated at the capture and so in the graph's memory; then the new
-        state and ``terminated`` over the carried block (the step makes each
-        of them anew, so none reads the carried block's memory)."""
-        *state, needs_reset = self.carried_views
-        es, vs = step(self.core, batched._env_state(state), needs_reset, *self.input_views)
-        if self.out is None:
-            self.out = batched._Packing([vs.obs, vs.reward])
-            self.out_buf = torch.empty((self.out.nbytes,), dtype=torch.uint8, device=vs.obs.device)
-            self.out_views = self.out.views(self.out_buf)
-        self.out.copy(self.out_views, [vs.obs, vs.reward])
-        self.carried.copy(self.carried_views, batched._state_tensors(es) + [vs.terminated])
+def _graph_step(core, carried, held, inputs):
+    """:func:`step` on a GraphedStep's lists: the state and ``needs_reset``
+    in, the state and ``terminated`` out, carried; one block of outputs."""
+    *state, needs_reset = carried
+    es, vs = step(core, state_from_tensors(state), needs_reset, *inputs)
+    return state_tensors(es) + [vs.terminated], [[vs.obs, vs.reward]]
 
 
 def to_numpy(vs: VectorStep) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -174,16 +112,11 @@ class LockstepEnv:
     full reset (None: the task's ``core.reset_attempts``); an autoreset
     takes one attempt, which keeps the batch in lockstep.
 
-    On a CUDA device each :meth:`step` replays :func:`step` from a
-    :class:`LockstepGraph`, one for each shape of the inputs, TF32 setting
-    (a captured product keeps its own) and ``core.grid``, unless the core
-    solves on a plain solver (their loops end on a host read); the values
-    are the eager step's.  Other attributes of the core are read when the
-    graph is captured.
+    On a CUDA device each :meth:`step` replays :func:`step` from a CUDA
+    graph (``core/graph.py``) unless the core solves on a plain solver; the
+    values are the eager step's.  Other attributes of the core are read when
+    the graph is captured.
     """
-
-    # The device type whose steps replay a LockstepGraph.
-    _graph_device = "cuda"
 
     def __init__(self, core: EnvCore, num_envs: int, seed: Optional[int] = None,
                  reset_attempts: Optional[int] = None):
@@ -197,7 +130,7 @@ class LockstepEnv:
         self.generator = torch.Generator(device=core.device).manual_seed(0 if seed is None else int(seed))
         self.es: Optional[EnvState] = None
         self.needs_reset: Optional[torch.Tensor] = None  # [B] bool: lanes to autoreset on the next step
-        self._graphs: dict = {}  # input shapes -> LockstepGraph
+        self._graphs: dict = {}  # graph_key -> GraphedStep
 
     def reset(self, seed: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """A full reset of every lane: ``(obs [B, obs_n], failed [B])``.  A
@@ -216,16 +149,15 @@ class LockstepEnv:
         core, es, needs = self.core, self.es, self.needs_reset
         actions = torch.as_tensor(actions, device=core.device).to(core.dtype)
         d = draw(core, es, self.generator)
-        if es.state_vec.device.type != self._graph_device or not capturable(
-                resolve_solver_path(core.grid, core.pf_method)[0]):
+        if not graphed(core, es.state_vec.device):
             self.es, vs = _step_eager(core, es, needs, actions, d.vars, d.fresh_s0)
         else:
-            ins = (actions, *(torch.as_tensor(t, device=core.device) for t in d))
-            key = tuple((t.shape, t.dtype) for t in (es.state_vec, needs) + ins) + (
-                torch.backends.cuda.matmul.allow_tf32, id(core.grid))
-            graph = self._graphs.get(key)
-            if graph is None:
-                graph = self._graphs[key] = LockstepGraph(core)
-            self.es, vs = graph(es, needs, *ins)
+            ins = [actions, *(torch.as_tensor(t, device=core.device) for t in d)]
+            key = graph_key(core, [es.state_vec, needs] + ins)
+            run = self._graphs.get(key)
+            if run is None:
+                run = self._graphs[key] = GraphedStep(partial(_graph_step, core), core.grid, _COUNTERS)
+            (*state, terminated), ((obs, reward),) = run(state_tensors(es) + [needs], [], ins)
+            self.es, vs = state_from_tensors(state), VectorStep(obs=obs, reward=reward, terminated=terminated)
         self.needs_reset = vs.terminated
         return vs

@@ -1,11 +1,12 @@
 """A stand-in for a CUDA graph on the CPU, for the tests of the port's graph
-runners (``envs/batched.py::StepGraph``, ``envs/vector_core.py::LockstepGraph``)."""
+runner (``core/graph.py::GraphedStep``) under ``BatchedEnv`` and
+``LockstepEnv``."""
 
 from gym_anm_tpu_torch import ops
 
 
 class HostGraph:
-    """Stands in for a CUDA graph on the CPU (``batched.cuda_graph``): the
+    """Stands in for a CUDA graph on the CPU (``graph.cuda_graph``): the
     capture runs the step's host code once, as ``torch.cuda.graph`` does;
     each replay runs it again on the static buffers and leaves the kernels'
     launch counters as they were, as a replay does."""

@@ -11,7 +11,7 @@
 * The port's ``step_fn`` is the step, the draw and the rebirth, in that
   order on its generator; rollouts with a policy and in both auto-reset
   modes on ANM6Easy; ``reset(strict=True)``.
-* The step's CUDA graph runner (``StepGraph``), driven on the CPU with a
+* The step's CUDA graph runner (``core/graph.py``), driven on the CPU with a
   stand-in for the graph that runs the captured step again on its static
   buffers: ANM6Easy (``tree``) and feeder33 (``fused``) at B=64, two 64-step
   pool segments, equal the eager step bit for bit; a returned tensor stays
@@ -35,11 +35,12 @@ from gym_anm_tpu_torch.core.env_core import EnvCore
 from gym_anm_tpu_torch.core.grid import build_grid
 from gym_anm_tpu_torch.core.obs import state_values_spec
 from gym_anm_tpu_torch import check
-from gym_anm_tpu_torch.core import transition
+from gym_anm_tpu_torch.core import graph as core_graph, transition
 from gym_anm_tpu_torch.core.state import SIM_FIELDS
 from gym_anm_tpu_torch.envs import batched
 from gym_anm_tpu_torch.envs.anm6.anm6_easy import make_core
-from gym_anm_tpu_torch.envs.batched import BatchedEnv, _state_tensors, take_lanes
+from gym_anm_tpu_torch.core.env_core import state_tensors, take_lanes
+from gym_anm_tpu_torch.envs.batched import BatchedEnv
 from gym_anm_tpu_torch.errors import EnvInitializationError
 from gym_anm_tpu_torch import ops
 from gym_anm_tpu_torch.ops import kernel_modules, step_cuda, tree_cuda
@@ -211,8 +212,8 @@ def _graph_run(task, graph, alternate):
 
         mp.setattr(transition, solver, counted)
         if graph:
-            mp.setattr(BatchedEnv, "_graph_device", "cpu")
-            mp.setattr(batched, "cuda_graph", HostGraph)
+            mp.setattr(core_graph, "GRAPH_DEVICE", "cpu")
+            mp.setattr(core_graph, "cuda_graph", HostGraph)
         core = check.task_make_core(task)(dtype=torch.float32, device="cpu", pf_method=pf_method)
         env = BatchedEnv(core, B, generator=torch.Generator().manual_seed(11), auto_reset=True)
         calls = {"vars": 0, "init": 0}
@@ -230,7 +231,7 @@ def _graph_run(task, graph, alternate):
 
         def step_fn(es, actions, generator=None, fresh=None):
             es, out = f_step(es, actions, generator, fresh)
-            ts = _state_tensors(es) + list(out)
+            ts = state_tensors(es) + list(out)
             returned.append((ts, [t.clone() for t in ts]))
             return es, out
 
@@ -276,7 +277,7 @@ def test_step_graph_runner_on_host(graph_runs, task, case):
         for yg, ye in zip(ys_g, ys_e):
             for a, b in zip(yg, ye):
                 torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
-        for a, b in zip(_state_tensors(es_g[0]), _state_tensors(es_e[0])):
+        for a, b in zip(state_tensors(es_g[0]), state_tensors(es_e[0])):
             torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
     elif case == "returned_unchanged":
         returned = graph_runs(task, True)[0]
@@ -294,7 +295,7 @@ def test_step_graph_runner_on_host(graph_runs, task, case):
             for a, b in zip(yg, ye):
                 torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
         for sg, se in zip(es_g, es_e):
-            for a, b in zip(_state_tensors(sg), _state_tensors(se)):
+            for a, b in zip(state_tensors(sg), state_tensors(se)):
                 torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
     else:
         c_g, c_e = graph_runs(task, True)[4], graph_runs(task, False)[4]
@@ -305,33 +306,54 @@ def test_step_graph_runner_on_host(graph_runs, task, case):
         assert c_g[4:] == [1, steps - 1, 1] and c_e[4:] == [0, 0, steps]
 
 
-def test_step_graph_follows_a_swapped_grid(monkeypatch):
+@pytest.mark.parametrize("env_cls", ["BatchedEnv", "LockstepEnv"])
+def test_step_graph_follows_a_swapped_grid(env_cls):
     """A core whose ``grid`` is swapped (here for the other projection form)
     gets a graph of its own, and both match the eager step bit for bit."""
     import dataclasses
 
+    from gym_anm_tpu_torch.envs import vector_core
     from gym_anm_tpu_torch.ops.projection import LanesProjector
 
     def run(graph):
-        core = make_core(torch.float32, "cpu")
-        env = BatchedEnv(core, B, generator=torch.Generator().manual_seed(4))
-        if not graph:
-            env.step_fn = env._step_eager
-        G = np.concatenate([np.asarray(core.spec.gen_G), np.asarray(core.spec.des_G)], axis=0)
-        es, _ = env.reset()
-        c0, outs = _counters(), []
-        for form in ("running_min", "stacked"):
-            core.grid = dataclasses.replace(core.grid, projector=LanesProjector(G, "cpu", torch.float32, form=form))
-            for _ in range(3):
-                es, out = env.step(es, env.random_actions())
-                outs.append(out)
-        return outs, [b - a for a, b in zip(c0, _counters())]
+        with pytest.MonkeyPatch.context() as mp:
+            if graph:
+                mp.setattr(core_graph, "GRAPH_DEVICE", "cpu")
+                mp.setattr(core_graph, "cuda_graph", HostGraph)
+            core = make_core(torch.float32, "cpu")
+            if env_cls == "BatchedEnv":
+                env = BatchedEnv(core, B, generator=torch.Generator().manual_seed(4))
+                es = [env.reset()[0]]
 
-    monkeypatch.setattr(BatchedEnv, "_graph_device", "cpu")
-    monkeypatch.setattr(batched, "cuda_graph", HostGraph)
+                def step():
+                    es[0], out = env.step(es[0], env.random_actions())
+                    return list(out) + state_tensors(es[0])
+
+                counters = lambda: [batched.STEP_GRAPH_CAPTURES, batched.STEP_GRAPH_REPLAYS, batched.STEP_EAGER_CALLS]
+            else:
+                env = vector_core.LockstepEnv(core, B, seed=4)
+                env.reset()
+                rng = np.random.default_rng(4)
+                lo, hi = np.asarray(core.action_low), np.asarray(core.action_high)
+
+                def step():
+                    vs = env.step((lo + (hi - lo) * rng.random((B, core.action_n))).astype(np.float32))
+                    return list(vs) + state_tensors(env.es)
+
+                counters = lambda: [vector_core.LOCKSTEP_GRAPH_CAPTURES, vector_core.LOCKSTEP_GRAPH_REPLAYS,
+                                    vector_core.LOCKSTEP_EAGER_CALLS]
+            G = np.concatenate([np.asarray(core.spec.gen_G), np.asarray(core.spec.des_G)], axis=0)
+            c0, outs = counters(), []
+            for form in ("running_min", "stacked"):
+                core.grid = dataclasses.replace(core.grid, projector=LanesProjector(G, "cpu", torch.float32, form=form))
+                for _ in range(3):
+                    outs.append(step())
+            return outs, [b - a for a, b in zip(c0, counters())]
+
     outs_g, c_g = run(True)
-    outs_e, _ = run(False)
-    assert c_g[4:] == [2, 2 * 2, 2]  # each grid: an eager warm-up, a capture and two replays
+    outs_e, c_e = run(False)
+    assert c_g == [2, 2 * 2, 2]  # each grid: an eager warm-up, a capture and two replays
+    assert c_e == [0, 0, 2 * 3]
     for a, b in zip(outs_g, outs_e):
         for x, y in zip(a, b):
             torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
@@ -341,8 +363,8 @@ def test_step_graph_follows_a_swapped_grid(monkeypatch):
 def test_step_graph_leaves_plain_solvers_eager(monkeypatch, pf_method):
     """The plain solvers end their loops on a host read of the lanes'
     convergence, which no graph holds: their steps run eagerly."""
-    monkeypatch.setattr(BatchedEnv, "_graph_device", "cpu")
-    monkeypatch.setattr(batched, "cuda_graph", HostGraph)
+    monkeypatch.setattr(core_graph, "GRAPH_DEVICE", "cpu")
+    monkeypatch.setattr(core_graph, "cuda_graph", HostGraph)
     env = BatchedEnv(make_core(torch.float32, "cpu", pf_method=pf_method), B, auto_reset=True)
     es, _ = env.reset()
     c0 = _counters()
@@ -380,8 +402,8 @@ def test_step_graph_without_auto_reset_draws_no_pool_index(monkeypatch):
             outs.append(out)
         return outs, env.generator.get_state()
 
-    monkeypatch.setattr(BatchedEnv, "_graph_device", "cpu")
-    monkeypatch.setattr(batched, "cuda_graph", HostGraph)
+    monkeypatch.setattr(core_graph, "GRAPH_DEVICE", "cpu")
+    monkeypatch.setattr(core_graph, "cuda_graph", HostGraph)
     c0 = _counters()
     outs_g, gen_g = run(True)
     assert [b - a for a, b in zip(c0, _counters())][4:] == [1, 3, 1]  # a warm-up step, then three replays

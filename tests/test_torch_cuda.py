@@ -463,11 +463,12 @@ def _lockstep_steps(env_name, graph_device, B=4096, T=64):
     not (a device type nothing has): each step's outputs and state, the
     final state, and the increments of K1's launches and lane-solves and of
     the graph replays."""
+    from gym_anm_tpu_torch.core import graph
+    from gym_anm_tpu_torch.core.env_core import state_tensors
     from gym_anm_tpu_torch.envs import vector_core
-    from gym_anm_tpu_torch.envs.batched import _state_tensors
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vector_core.LockstepEnv, "_graph_device", graph_device)
+        mp.setattr(graph, "GRAPH_DEVICE", graph_device)
         core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda", pf_method="tree")
         lock = vector_core.LockstepEnv(core, B, seed=7)
         lock.reset()
@@ -476,7 +477,7 @@ def _lockstep_steps(env_name, graph_device, B=4096, T=64):
         c0, outs = counts(), []
         for _ in range(T):
             vs = lock.step(rng.uniform(core.action_low, core.action_high, (B, core.action_n)).astype(np.float32))
-            outs.append(list(vs) + _state_tensors(lock.es))
+            outs.append(list(vs) + state_tensors(lock.es))
         torch.cuda.synchronize()
         return outs, [b - a for a, b in zip(c0, counts())]
 
@@ -837,7 +838,7 @@ def test_cuda_step_graph_rollout_matches_eager(env_name, pf_method, k):
     final state), and launch the path's kernel as often: once a step and once
     a segment's pool (and once a reset attempt)."""
     _need_cuda()
-    from gym_anm_tpu_torch.envs.batched import _state_tensors
+    from gym_anm_tpu_torch.core.env_core import state_tensors
 
     es_g, ys_g, launches_g, replays = _pool_rollouts(env_name, pf_method, eager=False)
     es_e, ys_e, launches_e, none = _pool_rollouts(env_name, pf_method, eager=True)
@@ -845,7 +846,7 @@ def test_cuda_step_graph_rollout_matches_eager(env_name, pf_method, k):
     for yg, ye in zip(ys_g, ys_e):
         for a, b in zip(yg, ye):
             _assert_same(a, b)
-    for a, b in zip(_state_tensors(es_g), _state_tensors(es_e)):
+    for a, b in zip(state_tensors(es_g), state_tensors(es_e)):
         _assert_same(a, b)
     assert launches_g == launches_e and launches_g[k] >= 2 * 64 + 2
     assert sum(launches_g) == launches_g[k]
@@ -948,7 +949,7 @@ def test_cuda_iteration_counts_through_the_step_graph(env_name):
     summed, the budget hits, B lane-solves a launch), and their steps equal
     the eager steps bit for bit with the counters on."""
     _need_cuda()
-    from gym_anm_tpu_torch.envs.batched import _state_tensors
+    from gym_anm_tpu_torch.core.env_core import state_tensors
 
     es_g, ys_g, counted_g, _ = _counted_pool_rollouts(env_name, eager=False)
     es_e, ys_e, counted_e, summed = _counted_pool_rollouts(env_name, eager=True)
@@ -957,5 +958,5 @@ def test_cuda_iteration_counts_through_the_step_graph(env_name):
     for yg, ye in zip(ys_g, ys_e):
         for a, b in zip(yg, ye):
             _assert_same(a, b)
-    for a, b in zip(_state_tensors(es_g), _state_tensors(es_e)):
+    for a, b in zip(state_tensors(es_g), state_tensors(es_e)):
         _assert_same(a, b)

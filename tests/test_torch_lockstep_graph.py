@@ -1,5 +1,5 @@
-"""The CUDA graph runner of ``LockstepEnv.step`` (``envs/vector_core.py::
-LockstepGraph``), driven on the CPU with a stand-in for the graph that runs
+"""The CUDA graph runner of ``LockstepEnv.step`` (``core/graph.py::
+GraphedStep``), driven on the CPU with a stand-in for the graph that runs
 the captured step again on its static buffers (``tests/graph_standin.py``).
 
 ANM6Easy and feeder33 on ``tree`` at B=64, 64 steps from NumPy actions, the
@@ -17,9 +17,9 @@ import pytest
 import torch
 
 from gym_anm_tpu_torch import check
-from gym_anm_tpu_torch.core import transition
-from gym_anm_tpu_torch.envs import batched, vector_core
-from gym_anm_tpu_torch.envs.batched import _state_tensors, take_lanes
+from gym_anm_tpu_torch.core import graph as core_graph, transition
+from gym_anm_tpu_torch.core.env_core import state_tensors, take_lanes
+from gym_anm_tpu_torch.envs import vector_core
 from gym_anm_tpu_torch.envs.vector_core import LockstepEnv
 from gym_anm_tpu_torch.ops import tree_cuda
 
@@ -56,8 +56,8 @@ def _lockstep_run(task, graph, replaced=False, pf_method="tree", steps=STEPS):
 
         mp.setattr(transition, "solve_pfe_tree", counted)
         if graph:
-            mp.setattr(LockstepEnv, "_graph_device", "cpu")
-            mp.setattr(batched, "cuda_graph", HostGraph)
+            mp.setattr(core_graph, "GRAPH_DEVICE", "cpu")
+            mp.setattr(core_graph, "cuda_graph", HostGraph)
         core = check.task_make_core(task)(dtype=torch.float32, device="cpu", pf_method=pf_method, **TASKS[task])
         calls = []
         f_vars, f_init = core.next_vars_fn, core.init_state_fn
@@ -86,7 +86,7 @@ def _lockstep_run(task, graph, replaced=False, pf_method="tree", steps=STEPS):
             if replaced and t == NEW_STATE:
                 lock.es = take_lanes(lock.es, torch.roll(torch.arange(B), 3))
             vs = lock.step((lo + (hi - lo) * rng.random((B, core.action_n))).astype(np.float32))
-            ts = list(vs) + _state_tensors(lock.es)
+            ts = list(vs) + state_tensors(lock.es)
             assert lock.needs_reset is vs.terminated
             returned.append((ts, [x.clone() for x in ts]))
         return returned, calls, [b - a for a, b in zip(c0, _counters())]
