@@ -562,7 +562,7 @@ def phase_step_vs_plain():
             pen = agreement(conv_k, conv_p, [(k.penalty - p.penalty).T], it_k, it_p)["max_abs_err"]
             its = collections.Counter(int(i) for i in it_k.cpu().numpy())
             flops = sum(
-                c * step_cuda.step_fused_flops_per_lane(st, i - min(i, chord), min(i, chord))
+                c * step_cuda.step_fused_flops_per_lane(st, i - min(i, chord), min(i, chord), core.nr_pivot)
                 for i, c in its.items()
             )
             tables = sum(t.numel() for t in st.f.values()) + sum(t.numel() for t in st.i.values())
@@ -570,9 +570,10 @@ def phase_step_vs_plain():
             row = {
                 "phase": "kernel_vs_plain", "kernel": "step_fused", "env": env, "pf_method": method,
                 "chord_iters": chord, "max_iter": core.max_iter, "B": KERNEL_B, "mean_iters": float(it_k.mean()),
+                "form": "tree" if step_cuda.tree_form(st, chord, core.nr_pivot) else "dense",
                 **agree, "penalty_max_abs_err": pen,
                 "ms": event_ms(kern, 20, 5, graph=True), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
-                "geometry": step_cuda.step_fused_geometry(st, chord),
+                "geometry": step_cuda.step_fused_geometry(st, chord, core.nr_pivot),
             }
             row["bit_identical"] = bit_identical(row) and pen == 0.0
             emit(row)

@@ -898,7 +898,7 @@ class GridTensors:
     # Derived from the static structure:
     dev_perm: torch.Tensor  # [d] int64: [slack, loads, gens, des] -> device order
     projector: object  # ops.projection.LanesProjector over [gen_G; des_G]
-    tree: object  # ops.tree_cuda.DeviceSchedule, None for a meshed grid
+    tree: object  # ops.tree_cuda.DeviceSchedule, None for a meshed grid (the step tables' own)
     J0inv: torch.Tensor  # [2m, 2m] inverse flat-start Jacobian (chord iterations)
     step: object  # ops.step_cuda.StepTables, None without a load, generator and storage unit
     inf: torch.Tensor  # [] +inf, the slack power of a diverged solve (made once: no copy a step)
@@ -925,15 +925,16 @@ class GridTensors:
         perm[concat_order] = np.arange(spec.n_dev)
         G_static = np.concatenate([np.asarray(spec.gen_G), np.asarray(spec.des_G)], axis=0)
         J0inv = flat_start_jacobian_inv_np(spec.Y_re, spec.Y_im, np.float64)
+        step = StepTables.from_spec(spec, device, dtype) if fused_transition_supported(spec) else None
         return cls(
             spec=spec,
             device=device,
             dtype=dtype,
             dev_perm=torch.as_tensor(perm, device=device),
             projector=LanesProjector(G_static, device, dtype, form=projection_form(device)),
-            tree=DeviceSchedule.from_spec(spec, device, dtype),
+            tree=step.tree if step is not None else DeviceSchedule.from_spec(spec, device, dtype),
             J0inv=torch.as_tensor(J0inv, device=device).to(dtype),
-            step=StepTables.from_spec(spec, device, dtype) if fused_transition_supported(spec) else None,
+            step=step,
             inf=torch.tensor(float("inf"), dtype=dtype, device=device),
             **out,
         )

@@ -16,32 +16,47 @@
 //  4. the SoC update;
 //  5. device assembly (slack 0) and bus aggregation through the device->bus
 //     CSR table, summing each bus's devices in device order;
-//  6. the dense NR solve (nrcore::solve, nr_core.cuh);
+//  6. the NR solve: on a radial grid (one with a tree schedule) without a
+//     chord prefix or pivoting, the tree solve (treecore::newton,
+//     tree_core.cuh, K1's body) on the grid's slots; otherwise the dense
+//     solve (nrcore::solve, nr_core.cuh);
 //  7. slack recovery (a NaN slack power becomes +inf);
 //  8. branch currents, flows and the signed apparent power s_max;
 //  9. e_loss and the constraint penalty.
 //
-// What bounds it on an H100: the NR solve inside it (see nr_dense.cu and
-// nr_core.cuh); outside it, serial per-lane work, the largest part the
-// projection (47 candidates for each controllable device, each tested
-// against every polytope row).  The design answers both with one team of T
-// threads per lane, the team of the NR solve: loads, potentials and the
-// polytope rows split by device and row; the projection's (device,
-// candidate) pairs split over the team, each thread keeping a running
-// minimum over its own candidates in increasing order and the team then
-// reducing by (distance, candidate index), which picks what the sequential
-// scan picks; bus aggregation one thread per bus, branch flows one thread
-// per branch.  The three order-sensitive sums (e_loss, the voltage and the
-// branch penalties) stay sequential on one thread.  dev_p, dev_q and the
-// potentials live in the lane's shared-memory region; the polytope rows and
-// the branch penalties are scratch overlaid on the NR system.
+// What bounds it on an H100: the NR solve inside it, and how many lanes a
+// card holds at once.  The dense form eliminates the lane's whole
+// [2m, 2m | F] system (64 pivot steps at feeder33's 33 buses), which at
+// ~20 KB of shared memory a lane keeps 11 lanes on an SM, so 4,096 lanes
+// take 2.8 latency-bound waves.  A radial grid's Jacobian eliminates leaf
+// to root with no fill-in, so the tree form solves each NR step in O(S)
+// 2x2-block operations from 22 planes of S floats (2.8 KB at S = 32): with
+// the stages' own state a lane takes 3.7 KB, and 4,096 lanes fit the card
+// in one wave (kTreeThreadsPerSM).  Outside the solve: serial per-lane
+// work, the largest part the projection (47 candidates for each
+// controllable device, each tested against every polytope row).  The
+// design answers both with one team of T threads per lane, the team of
+// the NR solve: loads, potentials and the polytope rows split by device
+// and row; the projection's (device, candidate) pairs split over the team,
+// each thread keeping a running minimum over its own candidates in
+// increasing order and the team then reducing by (distance, candidate
+// index), which picks what the sequential scan picks; bus aggregation one
+// thread per bus (the tree form: per slot, in slot order), branch flows one
+// thread per branch.  The three order-sensitive sums (e_loss, the voltage
+// and the branch penalties) stay sequential on one thread.  dev_p, dev_q
+// and the potentials live in the lane's shared-memory region; the polytope
+// rows and the branch penalties are scratch, overlaid on the dense form's
+// NR system and kept apart from the tree form's planes.
 //
 // Layout: the lane inputs arrive packed batch-last, [K_in, B] (soc, P_load,
 // P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des); the outputs leave
 // packed, [K_out, B], in FusedStepOutputs order plus the NR iteration count.
-// Y (and J0inv with a chord prefix) is staged in shared memory per block;
-// the other grid tables are small device arrays read through the read-only
-// cache.
+// The dense form stages Y (and J0inv with a chord prefix) in shared memory
+// per block, the tree form the schedule; the other grid tables are small
+// device arrays read through the read-only cache.  The tree form returns V
+// and I (the slack's current the sequential sum over row 0 of Y, as the
+// dense form takes it) in bus order, and adds nothing to the tree-NR
+// kernel's iteration counters.
 //
 // Interface: plain C, loaded with ctypes.  The launch goes on the caller's
 // stream, does not synchronise and allocates nothing; the function returns
@@ -51,6 +66,7 @@
 #include <math.h>
 
 #include "nr_core.cuh"
+#include "tree_core.cuh"
 
 namespace {
 
@@ -62,6 +78,14 @@ enum FTab { F_YRE, F_YIM, F_J0INV, F_GX, F_GY, F_H0, F_LOADC, F_GENC, F_DESC, F_
             N_FTAB };
 enum ITab { I_LOAD_POS, I_GEN_POS, I_DES_POS, I_BUS_PTR, I_BUS_DEV, I_BR_FT, I_RER, I_CAND, N_ITAB };
 enum Dim { D_N, D_D, D_L, D_NLOAD, D_NGEN, D_NDES, D_NRER, D_SLACK, D_ROWS, D_CAP_ROW, D_FLOOR_ROW, D_NCAND, N_DIM };
+// The tree form's schedule tables and sizes (step_cuda.py: TREE_TABLES,
+// TREE_DIMS).
+enum TTab { T_YCOLS, T_PAR, T_CH, T_LEVELS, T_SLOT_BUS, T_BUS_SLOT, N_TTAB };
+enum TDim { TD_S, TD_MAXC, TD_NLEVELS, N_TDIM };
+
+// Threads an SM the tree form is built to keep resident (its launch
+// bound): 32 warps, so one wave holds 4,096 lanes of 32 slots on 132 SMs.
+constexpr int kTreeThreadsPerSM = 1024;
 
 struct Step {
   const float* f[N_FTAB];
@@ -70,21 +94,78 @@ struct Step {
   float delta_t, dt_lamb;
 };
 
+// The grid's schedule for the tree form.
+struct TreeStep {
+  treecore::Tables sched;
+  const long long* slot_bus;  // [S] bus - 1 of each slot, n - 1 at a pad slot
+  const long long* bus_slot;  // [n - 1] the slot of bus i + 1
+};
+
 using nrcore::nanmax;
 
 __device__ inline float clip(float x, float lo, float hi) { return isnan(x) ? x : fminf(fmaxf(x, lo), hi); }
 
 __device__ inline float sgn(float x) { return isnan(x) ? x : (x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f)); }
 
-// The lane's region: the NR layout, then dev_p [d], dev_q [d] and the
-// clipped potentials [n_gen]; the scratch in front holds the polytope rows
-// (h and tol, [C, R] each) before the solve and the branch penalties [L]
-// after it.
+// Floats of a lane's scratch: the polytope rows (h and tol, [C, R] each)
+// before the solve, the branch penalties [L] after it.
+__host__ __device__ inline int step_scratch(const int* dim) {
+  const int poly = 2 * (dim[D_NGEN] + dim[D_NDES]) * dim[D_ROWS];
+  return poly > dim[D_L] ? poly : dim[D_L];
+}
+
+// The dense form's lane region: the NR layout, with the scratch in front,
+// then dev_p [d], dev_q [d] and the clipped potentials [n_gen].
 __host__ __device__ inline nrcore::Layout step_layout(const int* dim, int team) {
-  const int C = dim[D_NGEN] + dim[D_NDES];
-  const int poly = 2 * C * dim[D_ROWS];
-  const int scratch = poly > dim[D_L] ? poly : dim[D_L];
-  return nrcore::make_layout(dim[D_N], team, scratch, 2 * dim[D_D] + dim[D_NGEN]);
+  return nrcore::make_layout(dim[D_N], team, step_scratch(dim), 2 * dim[D_D] + dim[D_NGEN]);
+}
+
+// The tree form's floats after the lane's planes: dev_p, dev_q, the
+// potentials and the scratch.
+__host__ __device__ inline int tree_tail_floats(const int* dim) {
+  return 2 * dim[D_D] + dim[D_NGEN] + step_scratch(dim);
+}
+
+// Lane b's columns of the packed inputs and outputs.  A lane past the batch
+// (tree form) reads lane 0's inputs and writes nothing.
+struct LaneIO {
+  const float* in;
+  float* out;
+  int B, b;
+  bool write;
+  __device__ float get(int row) const { return in[(size_t)row * B + b]; }
+  __device__ void put(int row, float v) const {
+    if (write) out[(size_t)row * B + b] = v;
+  }
+};
+
+// Row offsets of the packed inputs (soc at 0) and outputs (dev_p at 0).
+struct Rows {
+  int pload, ppot, psg, qsg, psd, qsd;
+  int devq, soc, ppot_out, vre, vim, ire, iim, busp, busq, br, eloss;
+};
+
+__device__ inline Rows rows(const int* dim) {
+  const int n = dim[D_N], d = dim[D_D], L = dim[D_L], n_gen = dim[D_NGEN], n_des = dim[D_NDES];
+  Rows r;
+  r.pload = n_des;
+  r.ppot = r.pload + dim[D_NLOAD];
+  r.psg = r.ppot + n_gen;
+  r.qsg = r.psg + n_gen;
+  r.psd = r.qsg + n_gen;
+  r.qsd = r.psd + n_des;
+  r.devq = d;
+  r.soc = 2 * d;
+  r.ppot_out = r.soc + n_des;
+  r.vre = r.ppot_out + n_gen;
+  r.vim = r.vre + n;
+  r.ire = r.vim + n;
+  r.iim = r.ire + n;
+  r.busp = r.iim + n;
+  r.busq = r.busp + n;
+  r.br = r.busq + n;
+  r.eloss = r.br + 9 * L;
+  return r;
 }
 
 // One device's polytope for this lane: the normals (a read-only table) and
@@ -142,12 +223,13 @@ __device__ inline bool candidate(const Poly& P, int r, int s, float px, float py
   return valid && isfinite(x) && isfinite(y) && P.feasible(x, y);
 }
 
-// Exact projection of (px, py) onto one device's polytope by the team.
-// Thread t takes the list entries e = t - 1 (mod T), e = -1 being the point
-// itself (distance 0 if feasible, else inf), and keeps the first of least
-// distance among its own; the team then keeps the least (distance, entry).
-template <int T>
-__device__ void project(const nrcore::Team<T>& tm, const Step& S, const Poly& P, float px, float py, float* x_out,
+// Exact projection of (px, py) onto one device's polytope by the team (of
+// either form: `tm` has the rank t and the team's shuffle xor_).  Thread t
+// takes the list entries e = t - 1 (mod T), e = -1 being the point itself
+// (distance 0 if feasible, else inf), and keeps the first of least distance
+// among its own; the team then keeps the least (distance, entry).
+template <int T, class Tm>
+__device__ void project(const Tm& tm, const Step& S, const Poly& P, float px, float py, float* x_out,
                         float* y_out) {
   float bx = px, by = py, bd = INFINITY;
   int bi = nrcore::kBigIndex;
@@ -180,61 +262,42 @@ __device__ void project(const nrcore::Team<T>& tm, const Step& S, const Poly& P,
   *y_out = by;
 }
 
-template <class C>
-__global__ void __launch_bounds__(C::kThreadsMax, 1)
-step_fused_kernel(Step S, const float* __restrict__ in, float* __restrict__ out, int B, float x_tol, int max_iter,
-                  int chord_iters, int pivot) {
-  constexpr int T = C::T;
-  const int n = S.dim[D_N], d = S.dim[D_D], L = S.dim[D_L];
-  const nrcore::Tables nt{S.f[F_YRE], S.f[F_YIM], S.f[F_J0INV], n};
-  float* smem = nrcore::dynamic_smem();
-  const nrcore::TableView tv = nrcore::stage_tables(nt, smem, chord_iters > 0);
-  const int slot = threadIdx.x / T;
-  const int b = blockIdx.x * (blockDim.x / T) + slot;
-  if (b >= B) return;  // a whole team: no thread of it syncs again
-  const auto tm = nrcore::Team<T>::make();
-  const int t = tm.t;
-  const nrcore::Layout Lay = step_layout(S.dim, T);
-  const nrcore::Lane ln{smem + nrcore::table_floats(n, chord_iters > 0) + slot * Lay.stride, Lay};
-  float* dev_p = ln.s + Lay.tail;
-  float* dev_q = dev_p + d;
-  float* p_pot = dev_q + d;
-
+// Stages 1-4 for one lane: dev_p, dev_q [d] (the slack's left at the lane's
+// zero), the clipped potentials p_pot [n_gen] and the new SoC; `poly` is the
+// scratch for the polytope rows.  Returns the lane's zero, soc * 0 (NaN
+// with it).
+template <int T, class Tm>
+__device__ float set_devices(const Tm& tm, const Step& S, const LaneIO& io, float* dev_p, float* dev_q,
+                             float* p_pot, float* poly) {
+  const int t = tm.t, d = S.dim[D_D];
   const int n_load = S.dim[D_NLOAD], n_gen = S.dim[D_NGEN], n_des = S.dim[D_NDES], R = S.dim[D_ROWS];
   const int n_ctl = n_gen + n_des;
   const float dt = S.delta_t;
-  // Input and output row offsets.
-  const int in_pload = n_des, in_ppot = in_pload + n_load, in_psg = in_ppot + n_gen, in_qsg = in_psg + n_gen;
-  const int in_psd = in_qsg + n_gen, in_qsd = in_psd + n_des;
-  const int o_devq = d, o_soc = 2 * d, o_ppot = o_soc + n_des, o_vre = o_ppot + n_gen, o_vim = o_vre + n;
-  const int o_ire = o_vim + n, o_iim = o_ire + n, o_busp = o_iim + n, o_busq = o_busp + n, o_br = o_busq + n;
-  const int o_eloss = o_br + 9 * L;
-  auto IN = [&](int row) { return in[(size_t)row * B + b]; };
-  auto OUT = [&](int row, float v) { out[(size_t)row * B + b] = v; };
+  const Rows rw = rows(S.dim);
   const float* loadc = S.f[F_LOADC];
   const float* genc = S.f[F_GENC];
   const float* desc = S.f[F_DESC];
 
-  const float zero = IN(0) * 0.0f;
+  const float zero = io.get(0) * 0.0f;
   for (int k = t; k < d; k += T) dev_p[k] = dev_q[k] = zero;
   tm.sync();
   // 1. Loads.
   for (int i = t; i < n_load; i += T) {
-    const float lp = clip(IN(in_pload + i), __ldg(loadc + 3 * i), __ldg(loadc + 3 * i + 1));
+    const float lp = clip(io.get(rw.pload + i), __ldg(loadc + 3 * i), __ldg(loadc + 3 * i + 1));
     const int pos = __ldg(S.i[I_LOAD_POS] + i);
     dev_p[pos] = lp;
     dev_q[pos] = lp * __ldg(loadc + 3 * i + 2);
   }
   // 2. Generator potentials.
   for (int i = t; i < n_gen; i += T) {
-    p_pot[i] = clip(IN(in_ppot + i), __ldg(genc + 2 * i), __ldg(genc + 2 * i + 1));
-    OUT(o_ppot + i, p_pot[i]);
+    p_pot[i] = clip(io.get(rw.ppot + i), __ldg(genc + 2 * i), __ldg(genc + 2 * i + 1));
+    io.put(rw.ppot_out + i, p_pot[i]);
   }
   tm.sync();
   // 3. This step's polytope rows: the potential caps the generators, the
   // SoC-rate caps the storage units; every row's tolerance.
-  float* poly_h = ln.s;
-  float* poly_tol = ln.s + n_ctl * R;
+  float* poly_h = poly;
+  float* poly_tol = poly + n_ctl * R;
   const int cap_row = S.dim[D_CAP_ROW], floor_row = S.dim[D_FLOOR_ROW];
   for (int e = t; e < n_ctl * R; e += T) {
     const int c = e / R, r = e - c * R;
@@ -242,7 +305,7 @@ step_fused_kernel(Step S, const float* __restrict__ in, float* __restrict__ out,
     float h = __ldg(S.f[F_H0] + e);
     if (!gen && (r == cap_row || r == floor_row)) {
       const int j = c - n_gen;
-      const float soc = IN(j), eff = __ldg(desc + 3 * j + 2);
+      const float soc = io.get(j), eff = __ldg(desc + 3 * j + 2);
       h = r == cap_row ? eff * (soc - __ldg(desc + 3 * j)) / dt : -(soc - __ldg(desc + 3 * j + 1)) / (dt * eff);
     } else if (gen && r == cap_row) {
       h = p_pot[c];
@@ -257,69 +320,77 @@ step_fused_kernel(Step S, const float* __restrict__ in, float* __restrict__ out,
     const int j = gen ? c : c - n_gen;
     const Poly P{S.f[F_GX] + c * R, S.f[F_GY] + c * R, poly_h + c * R, poly_tol + c * R, R};
     float x, y;
-    project(tm, S, P, IN(gen ? in_psg + j : in_psd + j), IN(gen ? in_qsg + j : in_qsd + j), &x, &y);
+    project<T>(tm, S, P, io.get(gen ? rw.psg + j : rw.psd + j), io.get(gen ? rw.qsg + j : rw.qsd + j), &x, &y);
     if (t == c % T) {
       const int pos = __ldg((gen ? S.i[I_GEN_POS] : S.i[I_DES_POS]) + j);
       dev_p[pos] = x;
       dev_q[pos] = y;
       if (!gen) {
-        const float soc = IN(j), eff = __ldg(desc + 3 * j + 2);
+        const float soc = io.get(j), eff = __ldg(desc + 3 * j + 2);
         const float s = x <= 0.0f ? soc - (dt * eff) * x : soc - (dt * x) / eff;
-        OUT(o_soc + j, clip(s, __ldg(desc + 3 * j), __ldg(desc + 3 * j + 1)));
+        io.put(rw.soc + j, clip(s, __ldg(desc + 3 * j), __ldg(desc + 3 * j + 1)));
       }
     }
   }
   tm.sync();
-  // 5. Bus aggregation of the non-slack buses (the slack bus takes the
-  // recovered slack power below).
-  const int* bus_ptr = S.i[I_BUS_PTR];
-  const int* bus_dev = S.i[I_BUS_DEV];
-  for (int s = t; s < n - 1; s += T) {
-    const int lo = __ldg(bus_ptr + s + 1), hi = __ldg(bus_ptr + s + 2);
-    float ap = zero, aq = zero;
-    for (int k = lo; k < hi; ++k) {
-      const int dv = __ldg(bus_dev + k);
-      ap = k == lo ? dev_p[dv] : ap + dev_p[dv];
-      aq = k == lo ? dev_q[dv] : aq + dev_q[dv];
-    }
-    ln.p(s) = ap;
-    ln.q(s) = aq;
-    OUT(o_busp + s + 1, ap);
-    OUT(o_busq + s + 1, aq);
+  return zero;
+}
+
+// 5. The injection of non-slack bus `bus`: its devices summed in device
+// order (a bus without devices reads `zero`), written to its output rows.
+__device__ inline void bus_sum(const Step& S, const LaneIO& io, const Rows& rw, int bus, const float* dev_p,
+                               const float* dev_q, float zero, float* ap_out, float* aq_out) {
+  const int lo = __ldg(S.i[I_BUS_PTR] + bus), hi = __ldg(S.i[I_BUS_PTR] + bus + 1);
+  float ap = zero, aq = zero;
+  for (int k = lo; k < hi; ++k) {
+    const int dv = __ldg(S.i[I_BUS_DEV] + k);
+    ap = k == lo ? dev_p[dv] : ap + dev_p[dv];
+    aq = k == lo ? dev_q[dv] : aq + dev_q[dv];
   }
-  // 6. Power flow (the scratch above is free again).
-  int it;
-  const float diff = nrcore::solve<C>(tm, tv, ln, x_tol, max_iter, chord_iters, pivot != 0, &it);
+  io.put(rw.busp + bus, ap);
+  io.put(rw.busq + bus, aq);
+  *ap_out = ap;
+  *aq_out = aq;
+}
+
+// Stages 7-9 for one lane from the solved bus voltages and currents vr, vi,
+// ir, ii [n] (the slack's at 0): slack recovery, the outputs, branch flows
+// and the reward terms; br_term is scratch of L floats.
+template <int T, class Tm>
+__device__ void finish(const Tm& tm, const Step& S, const LaneIO& io, const float* vr, const float* vi,
+                       const float* ir, const float* ii, float* dev_p, float* dev_q, const float* p_pot,
+                       float* br_term, float diff, int it) {
+  const int t = tm.t, n = S.dim[D_N], d = S.dim[D_D], L = S.dim[D_L];
+  const Rows rw = rows(S.dim);
   // 7. Slack recovery.
   if (t == 0) {
-    const float p0 = isnan(ln.ir(0)) ? INFINITY : ln.ir(0);
-    const float q0 = isnan(ln.ii(0)) ? INFINITY : -ln.ii(0);
+    const float p0 = isnan(ir[0]) ? INFINITY : ir[0];
+    const float q0 = isnan(ii[0]) ? INFINITY : -ii[0];
     const int slack = S.dim[D_SLACK];
     dev_p[slack] = p0;
     dev_q[slack] = q0;
-    OUT(o_busp, p0);
-    OUT(o_busq, q0);
+    io.put(rw.busp, p0);
+    io.put(rw.busq, q0);
   }
   tm.sync();
   for (int k = t; k < d; k += T) {
-    OUT(k, dev_p[k]);
-    OUT(o_devq + k, dev_q[k]);
+    io.put(k, dev_p[k]);
+    io.put(rw.devq + k, dev_q[k]);
   }
   for (int i = t; i < n; i += T) {
-    OUT(o_vre + i, ln.vr(i));
-    OUT(o_vim + i, ln.vi(i));
-    OUT(o_ire + i, ln.ir(i));
-    OUT(o_iim + i, ln.ii(i));
+    io.put(rw.vre + i, vr[i]);
+    io.put(rw.vim + i, vi[i]);
+    io.put(rw.ire + i, ir[i]);
+    io.put(rw.iim + i, ii[i]);
   }
   // 8. Branch currents and flows, one thread a branch; each branch's
   // penalty term goes to the scratch for the sequential sum below.
-  float* br_term = ln.s;
   for (int l = t; l < L; l += T) {
     const int f = __ldg(S.i[I_BR_FT] + 2 * l), to = __ldg(S.i[I_BR_FT] + 2 * l + 1);
     const float* cf = S.f[F_BRCOEF] + 8 * l;  // aff, aft, atf, att as (re, im)
     float c[8];
     for (int k = 0; k < 8; ++k) c[k] = __ldg(cf + k);
-    const float vfr = ln.vr(f), vfi = ln.vi(f), vtr = ln.vr(to), vti = ln.vi(to);
+    const float vfr = vr[f], vfi = vi[f], vtr = vr[to], vti = vi[to];
     const float if_re = c[0] * vfr - c[1] * vfi + c[2] * vtr - c[3] * vti;
     const float if_im = c[0] * vfi + c[1] * vfr + c[2] * vti + c[3] * vtr;
     const float it_re = c[6] * vtr - c[7] * vti + c[4] * vfr - c[5] * vfi;
@@ -332,7 +403,7 @@ step_fused_kernel(Step S, const float* __restrict__ in, float* __restrict__ out,
     const float s_t = sqrtf(p_t * p_t + q_t * q_t);
     const float s_m = sgn(p_f) * nanmax(s_f, s_t);
     const float vals[9] = {if_re, if_im, it_re, it_im, p_f, q_f, p_t, q_t, s_m};
-    for (int k = 0; k < 9; ++k) OUT(o_br + k * L + l, vals[k]);
+    for (int k = 0; k < 9; ++k) io.put(rw.br + k * L + l, vals[k]);
     br_term[l] = nanmax(0.0f, fabsf(s_m) - __ldg(S.f[F_RATE] + l));
   }
   tm.sync();
@@ -346,18 +417,123 @@ step_fused_kernel(Step S, const float* __restrict__ in, float* __restrict__ out,
       const int gi = __ldg(S.i[I_RER] + 2 * r), dpos = __ldg(S.i[I_RER] + 2 * r + 1);
       e_loss = e_loss + nanmax(0.0f, p_pot[gi] - dev_p[dpos]);
     }
-    e_loss = e_loss * dt;
+    e_loss = e_loss * S.delta_t;
     float v_pen = 0.0f;
     const float* busv = S.f[F_BUSV];
     for (int i = 0; i < n; ++i) {
-      const float vm = sqrtf(ln.vr(i) * ln.vr(i) + ln.vi(i) * ln.vi(i));
+      const float vm = sqrtf(vr[i] * vr[i] + vi[i] * vi[i]);
       v_pen = v_pen + (nanmax(0.0f, vm - __ldg(busv + 2 * i + 1)) + nanmax(0.0f, __ldg(busv + 2 * i) - vm));
     }
-    OUT(o_eloss, e_loss);
-    OUT(o_eloss + 1, (v_pen + br_pen) * S.dt_lamb);
-    OUT(o_eloss + 2, diff);
-    OUT(o_eloss + 3, (float)it);
+    io.put(rw.eloss, e_loss);
+    io.put(rw.eloss + 1, (v_pen + br_pen) * S.dt_lamb);
+    io.put(rw.eloss + 2, diff);
+    io.put(rw.eloss + 3, (float)it);
   }
+}
+
+// The dense form: nrcore::solve on the lane's whole system.
+template <class C>
+__global__ void __launch_bounds__(C::kThreadsMax, 1)
+step_fused_kernel(Step S, const float* __restrict__ in, float* __restrict__ out, int B, float x_tol, int max_iter,
+                  int chord_iters, int pivot) {
+  constexpr int T = C::T;
+  const int n = S.dim[D_N], d = S.dim[D_D];
+  const nrcore::Tables nt{S.f[F_YRE], S.f[F_YIM], S.f[F_J0INV], n};
+  float* smem = nrcore::dynamic_smem();
+  const nrcore::TableView tv = nrcore::stage_tables(nt, smem, chord_iters > 0);
+  const int slot = threadIdx.x / T;
+  const int b = blockIdx.x * (blockDim.x / T) + slot;
+  if (b >= B) return;  // a whole team: no thread of it syncs again
+  const auto tm = nrcore::Team<T>::make();
+  const nrcore::Layout Lay = step_layout(S.dim, T);
+  const nrcore::Lane ln{smem + nrcore::table_floats(n, chord_iters > 0) + slot * Lay.stride, Lay};
+  float* dev_p = ln.s + Lay.tail;
+  float* dev_q = dev_p + d;
+  float* p_pot = dev_q + d;
+  const LaneIO io{in, out, B, b, true};
+  const Rows rw = rows(S.dim);
+
+  const float zero = set_devices<T>(tm, S, io, dev_p, dev_q, p_pot, ln.s);
+  // 5. Bus aggregation of the non-slack buses (the slack bus takes the
+  // recovered slack power below).
+  for (int s = tm.t; s < n - 1; s += T) bus_sum(S, io, rw, s + 1, dev_p, dev_q, zero, &ln.p(s), &ln.q(s));
+  // 6. Power flow (the scratch above is free again).
+  int it;
+  const float diff = nrcore::solve<C>(tm, tv, ln, x_tol, max_iter, chord_iters, pivot != 0, &it);
+  finish<T>(tm, S, io, ln.s + Lay.vr, ln.s + Lay.vi, ln.s + Lay.ir, ln.s + Lay.ii, dev_p, dev_q, p_pot, ln.s, diff,
+            it);
+}
+
+// The tree form: treecore::newton on the grid's slots.  Every thread of a
+// warp runs to the end (the solve's votes are warp-wide); a lane past the
+// batch computes lane 0's transition beside its warp and writes nothing.
+template <class C>
+__global__ void __launch_bounds__(C::kThreadsMax, kTreeThreadsPerSM / C::kThreadsMax)
+step_fused_kernel_tree(Step S, TreeStep tr, const float* __restrict__ in, float* __restrict__ out, int B,
+                       float x_tol, int max_iter) {
+  constexpr int T = C::T;
+  const int n = S.dim[D_N], d = S.dim[D_D], m = n - 1, NS = tr.sched.S;
+  float* smem = nrcore::dynamic_smem();
+  const treecore::Sched sc = treecore::stage_schedule(tr.sched, smem);
+  const int slot = threadIdx.x / T;
+  const int b = blockIdx.x * (blockDim.x / T) + slot;
+  const bool valid = b < B;
+  if (!__any_sync(treecore::kFull, valid)) return;  // a whole warp past the batch
+  const treecore::Team<T> tm{(int)(threadIdx.x % T)};
+  const treecore::Lane ln{smem + treecore::table_words(NS, sc.maxC, sc.n_levels) +
+                              slot * treecore::lane_floats(NS, T, tree_tail_floats(S.dim)),
+                          NS};
+  float* dev_p = ln.r + treecore::N_PLANES * NS;
+  float* dev_q = dev_p + d;
+  float* p_pot = dev_q + d;
+  float* scratch = p_pot + S.dim[D_NGEN];
+  const LaneIO io{in, out, B, valid ? b : 0, valid};
+  const Rows rw = rows(S.dim);
+
+  const float zero = set_devices<T>(tm, S, io, dev_p, dev_q, p_pot, scratch);
+  // 5. Bus aggregation into the schedule's slots (a pad slot injects 0).
+  for (int s = tm.t; s < NS; s += T) {
+    const int bm1 = (int)__ldg(tr.slot_bus + s);
+    float ap = 0.0f, aq = 0.0f;
+    if (bm1 < m) bus_sum(S, io, rw, bm1 + 1, dev_p, dev_q, zero, &ap, &aq);
+    ln.at(treecore::PP, s) = ap;
+    ln.at(treecore::PQ, s) = aq;
+  }
+  // 6. Power flow (the solve syncs the team before it reads the injections).
+  int it;
+  const float diff = treecore::newton(tm, sc, ln, valid, nullptr, nullptr, B, 0, x_tol, max_iter, &it);
+  // V and I in bus order, over the solve's spent D, L and U planes (4 n <=
+  // 12 S floats), the slack's V pinned at 1+0j.
+  float* vr = &ln.at(treecore::D00, 0);
+  float* vi = vr + n;
+  float* ir = vi + n;
+  float* ii = ir + n;
+  for (int i = tm.t; i < m; i += T) {
+    const int s = (int)__ldg(tr.bus_slot + i);
+    vr[i + 1] = ln.at(treecore::VR, s);
+    vi[i + 1] = ln.at(treecore::VI, s);
+    ir[i + 1] = ln.at(treecore::IR, s);
+    ii[i + 1] = ln.at(treecore::II, s);
+  }
+  if (tm.t == 0) {
+    vr[0] = 1.0f;
+    vi[0] = 0.0f;
+  }
+  tm.sync();
+  // The slack's current at the final V: the sequential sum over row 0 of Y,
+  // as the dense form takes it.
+  if (tm.t == 0) {
+    float ar = 0.0f, ai = 0.0f;
+    for (int k = 0; k < n; ++k) {
+      const float yr = __ldg(S.f[F_YRE] + k), yi = __ldg(S.f[F_YIM] + k);
+      ar = ar + (yr * vr[k] - yi * vi[k]);
+      ai = ai + (yr * vi[k] + yi * vr[k]);
+    }
+    ir[0] = ar;
+    ii[0] = ai;
+  }
+  tm.sync();
+  finish<T>(tm, S, io, vr, vi, ir, ii, dev_p, dev_q, p_pot, scratch, diff, it);
 }
 
 template <class C>
@@ -368,34 +544,80 @@ cudaError_t geometry(const int* dims, int chord_iters, bool occupancy, nrcore::G
   return nrcore::prepare<step_fused_kernel<C>>(g, occupancy);
 }
 
+template <class C>
+cudaError_t tree_geometry(const int* dims, const int* tdims, bool occupancy, nrcore::Geometry* g) {
+  const int NS = tdims[TD_S];
+  if (!nrcore::plan<C>(treecore::lane_floats(NS, C::T, tree_tail_floats(dims)),
+                       treecore::table_words(NS, tdims[TD_MAXC], tdims[TD_NLEVELS]), g))
+    return cudaErrorInvalidValue;
+  if (g->threads % 32 != 0) return cudaErrorInvalidValue;  // warps are whole: every vote names all 32 threads
+  return nrcore::prepare<step_fused_kernel_tree<C>>(g, occupancy);
+}
+
 bool valid_dims(const int* dims) {
   const int n = dims[D_N];
   return n >= 2 && 2 * (n - 1) <= nrcore::kNNMax && dims[D_D] >= 1 && dims[D_ROWS] >= 1;
 }
 
+// A schedule holds a slot for every non-slack bus, so S >= n - 1 and the
+// bus-order V and I (4 n floats) fit the 12 S floats of the spent planes.
+bool valid_tree(const int* dims, const int* tdims) {
+  return valid_dims(dims) && tdims[TD_MAXC] >= 1 && tdims[TD_NLEVELS] >= 1 && tdims[TD_S] >= dims[D_N] - 1;
+}
+
 bool small_system(int n) { return 2 * (n - 1) <= nrcore::SmallClass::NN; }
 
-}  // namespace
+Step make_step(const void* const* ftab, const void* const* itab, const int* dims, float delta_t, float dt_lamb) {
+  Step S;
+  for (int k = 0; k < N_FTAB; ++k) S.f[k] = static_cast<const float*>(ftab[k]);
+  for (int k = 0; k < N_ITAB; ++k) S.i[k] = static_cast<const int*>(itab[k]);
+  for (int k = 0; k < N_DIM; ++k) S.dim[k] = dims[k];
+  S.delta_t = delta_t;
+  S.dt_lamb = dt_lamb;
+  return S;
+}
 
-extern "C" int step_fused_sizes(int* n_ftab, int* n_itab, int* n_dim) {
-  *n_ftab = N_FTAB;
-  *n_itab = N_ITAB;
-  *n_dim = N_DIM;
+int write_geometry(const nrcore::Geometry& g, int* out) {
+  const int vals[5] = {g.team, g.lanes, g.threads, g.smem, g.blocks_per_sm};
+  for (int k = 0; k < 5; ++k) out[k] = vals[k];
   return 0;
 }
 
-// The launch geometry for a grid of sizes `dims` (host array of N_DIM ints):
-// out = [threads a lane, lanes a block, threads a block, dynamic shared
-// bytes a block, resident blocks an SM].
+}  // namespace
+
+// The counts of the host arrays: float tables, int tables, sizes, and the
+// tree form's schedule tables and sizes.
+extern "C" int step_fused_sizes(int* n_ftab, int* n_itab, int* n_dim, int* n_ttab, int* n_tdim) {
+  *n_ftab = N_FTAB;
+  *n_itab = N_ITAB;
+  *n_dim = N_DIM;
+  *n_ttab = N_TTAB;
+  *n_tdim = N_TDIM;
+  return 0;
+}
+
+// The dense form's launch geometry for a grid of sizes `dims` (host array
+// of N_DIM ints): out = [threads a lane, lanes a block, threads a block,
+// dynamic shared bytes a block, resident blocks an SM].
 extern "C" int step_fused_geometry(const int* dims, int chord_iters, int* out) {
   if (!valid_dims(dims)) return static_cast<int>(cudaErrorInvalidValue);
   nrcore::Geometry g;
   const cudaError_t err = small_system(dims[D_N]) ? geometry<nrcore::SmallClass>(dims, chord_iters, true, &g)
                                                   : geometry<nrcore::LargeClass>(dims, chord_iters, true, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vals[5] = {g.team, g.lanes, g.threads, g.smem, g.blocks_per_sm};
-  for (int k = 0; k < 5; ++k) out[k] = vals[k];
-  return 0;
+  return write_geometry(g, out);
+}
+
+// The tree form's launch geometry for `dims` and a schedule of sizes
+// `tdims` (host array of N_TDIM ints), as step_fused_geometry.
+extern "C" int step_fused_tree_geometry(const int* dims, const int* tdims, int* out) {
+  if (!valid_tree(dims, tdims)) return static_cast<int>(cudaErrorInvalidValue);
+  nrcore::Geometry g;
+  const cudaError_t err = tdims[TD_S] <= treecore::kSmallSlots
+                              ? tree_geometry<treecore::SmallClass>(dims, tdims, true, &g)
+                              : tree_geometry<treecore::LargeClass>(dims, tdims, true, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return write_geometry(g, out);
 }
 
 // ftab: host array of N_FTAB device pointers (float tables); itab: host array
@@ -405,12 +627,7 @@ extern "C" int step_fused_f32(const void* const* ftab, const void* const* itab, 
                               float dt_lamb, const float* lanes_in, float* lanes_out, int B, float x_tol,
                               int max_iter, int chord_iters, int pivot, void* stream) {
   if (!valid_dims(dims) || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  Step S;
-  for (int k = 0; k < N_FTAB; ++k) S.f[k] = static_cast<const float*>(ftab[k]);
-  for (int k = 0; k < N_ITAB; ++k) S.i[k] = static_cast<const int*>(itab[k]);
-  for (int k = 0; k < N_DIM; ++k) S.dim[k] = dims[k];
-  S.delta_t = delta_t;
-  S.dt_lamb = dt_lamb;
+  const Step S = make_step(ftab, itab, dims, delta_t, dt_lamb);
   const auto s = static_cast<cudaStream_t>(stream);
   nrcore::Geometry g;
   cudaError_t err;
@@ -424,6 +641,37 @@ extern "C" int step_fused_f32(const void* const* ftab, const void* const* itab, 
     if (err == cudaSuccess)
       err = nrcore::launch(step_fused_kernel<nrcore::LargeClass>, g, B, s, S, lanes_in, lanes_out, B, x_tol, max_iter,
                            chord_iters, pivot);
+  }
+  return static_cast<int>(err);
+}
+
+// The tree form, as step_fused_f32 without a chord prefix or pivoting; ttab:
+// host array of N_TTAB device pointers (ycols [S, 8] float32; par [S],
+// children [maxC, S], levels [n_levels, 2] int32; slot_bus [S], bus_slot
+// [n - 1] int64), tdims: host array of N_TDIM ints (S, maxC, n_levels).
+extern "C" int step_fused_tree_f32(const void* const* ftab, const void* const* itab, const int* dims,
+                                   const void* const* ttab, const int* tdims, float delta_t, float dt_lamb,
+                                   const float* lanes_in, float* lanes_out, int B, float x_tol, int max_iter,
+                                   void* stream) {
+  if (!valid_tree(dims, tdims) || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Step S = make_step(ftab, itab, dims, delta_t, dt_lamb);
+  const TreeStep tr{treecore::Tables{static_cast<const float*>(ttab[T_YCOLS]), static_cast<const int*>(ttab[T_PAR]),
+                                     static_cast<const int*>(ttab[T_CH]), static_cast<const int*>(ttab[T_LEVELS]),
+                                     tdims[TD_S], tdims[TD_MAXC], tdims[TD_NLEVELS]},
+                    static_cast<const long long*>(ttab[T_SLOT_BUS]), static_cast<const long long*>(ttab[T_BUS_SLOT])};
+  const auto s = static_cast<cudaStream_t>(stream);
+  nrcore::Geometry g;
+  cudaError_t err;
+  if (tdims[TD_S] <= treecore::kSmallSlots) {
+    err = tree_geometry<treecore::SmallClass>(dims, tdims, false, &g);
+    if (err == cudaSuccess)
+      err = nrcore::launch(step_fused_kernel_tree<treecore::SmallClass>, g, B, s, S, tr, lanes_in, lanes_out, B,
+                           x_tol, max_iter);
+  } else {
+    err = tree_geometry<treecore::LargeClass>(dims, tdims, false, &g);
+    if (err == cudaSuccess)
+      err = nrcore::launch(step_fused_kernel_tree<treecore::LargeClass>, g, B, s, S, tr, lanes_in, lanes_out, B,
+                           x_tol, max_iter);
   }
   return static_cast<int>(err);
 }

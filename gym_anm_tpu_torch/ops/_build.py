@@ -29,8 +29,8 @@ NVCC_FLAGS = (
 )
 
 # The fields of a team kernel's launch geometry, in the order its C
-# function (tree_nr_geometry, nr_dense_geometry, step_fused_geometry)
-# writes them.
+# function (tree_nr_geometry, nr_dense_geometry, step_fused_geometry,
+# step_fused_tree_geometry) writes them.
 GEOMETRY_FIELDS = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes_per_block", "blocks_per_sm")
 
 _lock = threading.Lock()
@@ -80,12 +80,13 @@ def build() -> tuple[Path, str]:
 
 def _check_step_layout(lib):
     """The fused-transition kernel's table and size slots must be those the
-    wrapper packs (``step_cuda.FLOAT_TABLES``, ``INT_TABLES``, ``DIMS``)."""
-    from .step_cuda import DIMS, FLOAT_TABLES, INT_TABLES
+    wrapper packs (``step_cuda.FLOAT_TABLES``, ``INT_TABLES``, ``DIMS``,
+    ``TREE_TABLES``, ``TREE_DIMS``)."""
+    from .step_cuda import DIMS, FLOAT_TABLES, INT_TABLES, TREE_DIMS, TREE_TABLES
 
-    sizes = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int()]
+    sizes = [ctypes.c_int() for _ in range(5)]
     lib.step_fused_sizes(*(ctypes.byref(s) for s in sizes))
-    if [s.value for s in sizes] != [len(FLOAT_TABLES), len(INT_TABLES), len(DIMS)]:
+    if [s.value for s in sizes] != [len(FLOAT_TABLES), len(INT_TABLES), len(DIMS), len(TREE_TABLES), len(TREE_DIMS)]:
         raise RuntimeError("the fused-transition kernel's table layout differs from the wrapper's")
 
 
@@ -121,7 +122,7 @@ def load_library() -> ctypes.CDLL:
             lib.nr_dense_solve_f32.restype = ci
             lib.nr_dense_geometry.argtypes = [ci, ci, ctypes.POINTER(ci)]  # n, chord_iters, out[5]
             lib.nr_dense_geometry.restype = ci
-            lib.step_fused_sizes.argtypes = [ctypes.POINTER(ci)] * 3
+            lib.step_fused_sizes.argtypes = [ctypes.POINTER(ci)] * 5
             lib.step_fused_sizes.restype = ci
             _check_step_layout(lib)
             lib.step_fused_f32.argtypes = [
@@ -135,6 +136,18 @@ def load_library() -> ctypes.CDLL:
             lib.step_fused_f32.restype = ci
             lib.step_fused_geometry.argtypes = [ctypes.POINTER(ci), ci, ctypes.POINTER(ci)]  # dims, chord_iters, out[5]
             lib.step_fused_geometry.restype = ci
+            lib.step_fused_tree_f32.argtypes = [
+                # host arrays: float-table, int-table pointers, sizes, schedule pointers, schedule sizes
+                ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.POINTER(vp), ctypes.POINTER(ci),
+                cf, cf,  # delta_t, delta_t * lamb
+                vp, vp, ci,  # lanes_in, lanes_out, B
+                cf, ci,  # x_tol, max_iter
+                vp,  # stream
+            ]
+            lib.step_fused_tree_f32.restype = ci
+            # dims, schedule sizes, out[5]
+            lib.step_fused_tree_geometry.argtypes = [ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ci)]
+            lib.step_fused_tree_geometry.restype = ci
             _lib = lib
     return _lib
 

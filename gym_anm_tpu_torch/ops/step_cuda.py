@@ -6,10 +6,18 @@ what the TPU kernel ``_step_tile_kernel`` computes: load clipping and the Q/P
 ratio, generator-potential clipping and the storage SoC-rate polytope rows,
 the exact projection of every set-point onto its capability polytope (the
 point, the feet of the perpendiculars, then the vertices, with a running
-minimum), the SoC update, device assembly and bus aggregation, the dense NR
-solve (:func:`~gym_anm_tpu_torch.ops.nr_cuda.nr_core_plain` or its kernel
-form), slack recovery (NaN becomes +inf), branch currents and flows, and the
+minimum), the SoC update, device assembly and bus aggregation, the NR
+solve, slack recovery (NaN becomes +inf), branch currents and flows, and the
 energy-loss and penalty terms.
+
+The solve takes one of two forms, chosen by :func:`tree_form` from the grid
+and the call: on a radial grid (one with a tree schedule,
+:class:`~gym_anm_tpu_torch.ops.tree_cuda.DeviceSchedule`) without a chord
+prefix or pivoting, the tree-NR kernel's leaf-to-root block elimination on
+the grid's slots (:func:`~gym_anm_tpu_torch.ops.tree_cuda.tree_newton_plain`
+or its kernel form, ``csrc/tree_core.cuh``); otherwise the dense NR
+(:func:`~gym_anm_tpu_torch.ops.nr_cuda.nr_core_plain` or its kernel form).
+Both are exact Newton steps on the same equations from the flat start.
 
 Both versions work on packed batch-last buffers: the lane inputs ``[K_in,
 B]`` (``soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des``)
@@ -19,7 +27,8 @@ device (a CUDA float32 batch launches ``csrc/step_fused.cu``, a CPU batch
 runs :func:`fused_transition_plain`, a CUDA float64 batch raises) and hands
 the fields back batch-first as views of one transposed buffer.
 
-The grid's constants come from :class:`StepTables`, built once per grid.
+The grid's constants come from :class:`StepTables`, built once per grid,
+with the grid's tree schedule where it has one.
 The plain twin follows the kernel's order of operations; the projection's
 vertex determinants are taken from the normals in the working dtype, as the
 TPU kernel does, not precomputed in float64 as ``LanesProjector`` does.
@@ -38,9 +47,12 @@ import torch
 from ..core.grid import POLY_ROW_P_CAP, POLY_ROW_P_FLOOR
 from .nr_cuda import nr_core_plain, nr_dense_flops_per_lane, nr_flops_per_lane
 from .power_flow import flat_start_jacobian_inv_np
+from .tree_cuda import DeviceSchedule, tree_newton_plain, tree_nr_flops_per_lane
 
 # Launches of the CUDA kernel in this process (one per successful launch).
 KERNEL_LAUNCHES = 0
+# Those of them that solved in the tree form (:func:`tree_form`).
+TREE_LAUNCHES = 0
 
 # The kernel's table and size slots, in the order of the enums of
 # csrc/step_fused.cu.
@@ -49,6 +61,10 @@ FLOAT_TABLES = (
 )
 INT_TABLES = ("load_pos", "gen_pos", "des_pos", "bus_ptr", "bus_dev", "br_ft", "rer", "cand")
 DIMS = ("n", "d", "L", "n_load", "n_gen", "n_des", "n_rer", "slack", "rows", "cap_row", "floor_row", "n_cand")
+# The tree form's schedule tables (attributes of the DeviceSchedule) and
+# sizes, in the order of the enums of csrc/step_fused.cu.
+TREE_TABLES = ("ycols", "par", "children", "levels", "slot_sel", "busm1_slot")
+TREE_DIMS = ("S", "maxC", "n_levels")
 
 
 class FusedStepOutputs(NamedTuple):
@@ -130,6 +146,8 @@ class StepTables:
     f: dict  # name -> float tensor, see FLOAT_TABLES
     i: dict  # name -> int32 tensor, see INT_TABLES
     c_args: tuple  # ctypes arrays: float-table pointers, int-table pointers, sizes
+    tree: object  # tree_cuda.DeviceSchedule of a radial grid, None for a meshed one
+    tree_args: tuple  # ctypes arrays: the schedule's table pointers and sizes; () without one
 
     @classmethod
     def from_spec(cls, spec, device, dtype: torch.dtype) -> "StepTables":
@@ -182,11 +200,17 @@ class StepTables:
             for k, v in floats.items()
         }
         i = {k: torch.as_tensor(np.ascontiguousarray(v, np.int32), device=device) for k, v in ints.items()}
-        # The tensors above stay alive with the tables, so the pointers do.
+        # The tensors above (and the schedule's) stay alive with the tables,
+        # so the pointers do.
         c_args = (
             (ctypes.c_void_p * len(FLOAT_TABLES))(*(f[k].data_ptr() for k in FLOAT_TABLES)),
             (ctypes.c_void_p * len(INT_TABLES))(*(i[k].data_ptr() for k in INT_TABLES)),
             (ctypes.c_int * len(DIMS))(*(int(dims[k]) for k in DIMS)),
+        )
+        tree = DeviceSchedule.from_spec(spec, device, dtype)
+        tree_args = () if tree is None else (
+            (ctypes.c_void_p * len(TREE_TABLES))(*(getattr(tree, k).data_ptr() for k in TREE_TABLES)),
+            (ctypes.c_int * len(TREE_DIMS))(tree.sched.S, tree.sched.maxC, tree.levels.shape[0]),
         )
         return cls(
             dtype=dtype,
@@ -198,6 +222,8 @@ class StepTables:
             f=f,
             i=i,
             c_args=c_args,
+            tree=tree,
+            tree_args=tree_args,
         )
 
     @functools.cached_property
@@ -226,12 +252,22 @@ class StepTables:
         return (d["d"], d["d"], d["n_des"], d["n_gen"]) + (n,) * 6 + (L,) * 9 + (1, 1, 1, 1)
 
 
-def step_fused_flops_per_lane(st: StepTables, nr_iters: int, chord_iters: int = 0) -> int:
+def tree_form(st: StepTables, chord_iters: int = 0, pivot: bool = False) -> bool:
+    """Whether the fused transition solves in the tree form: on a grid with a
+    tree schedule, without a chord prefix and without pivoting.  The kernel
+    and its plain twin follow it alike."""
+    return st.tree is not None and chord_iters == 0 and not pivot
+
+
+def step_fused_flops_per_lane(st: StepTables, nr_iters: int, chord_iters: int = 0, pivot: bool = False) -> int:
     """FLOPs one lane of the fused transition needs when its power flow
     takes ``chord_iters`` chord and ``nr_iters`` NR steps, counted from
     ``csrc/step_fused.cu`` with the conventions of
-    :func:`~gym_anm_tpu_torch.ops.nr_cuda.nr_dense_flops_per_lane` (which
-    counts the solve).
+    :func:`~gym_anm_tpu_torch.ops.nr_cuda.nr_dense_flops_per_lane`, which
+    counts the dense form's solve;
+    :func:`~gym_anm_tpu_torch.ops.tree_cuda.tree_nr_flops_per_lane` counts
+    the tree form's (:func:`tree_form`), plus 8 per bus for the slack's
+    current.
 
     The projection is counted per device over the pruned candidate table:
     a foot 18, a vertex 25, plus 4 per active polytope row for each
@@ -266,7 +302,11 @@ def step_fused_flops_per_lane(st: StepTables, nr_iters: int, chord_iters: int = 
     aggregate = 2 * int(np.maximum(per_bus - 1, 0).sum())
     rest = (d["n_load"] + 9 * d["n_des"] + aggregate + 51 * d["L"] + 2 * d["d"] + 2 * d["n_rer"]
             + 8 * d["n"] + 4)
-    return int(proj) + rest + nr_dense_flops_per_lane(d["n"], nr_iters, chord_iters)
+    if tree_form(st, chord_iters, pivot):
+        solve = tree_nr_flops_per_lane(st.tree.sched.S, nr_iters) + 8 * d["n"]
+    else:
+        solve = nr_dense_flops_per_lane(d["n"], nr_iters, chord_iters)
+    return int(proj) + rest + solve
 
 
 def fused_step_flops_per_lane(spec, max_iter: int, chord_iters: int = 0, pivot: bool = False) -> int:
@@ -332,9 +372,34 @@ def _project_plain(st: StepTables, px, py, h):
     return best_x, best_y
 
 
+def _tree_solve_plain(st: StepTables, bus_p, bus_q, x_tol, max_iter):
+    """The tree form's solve, as the kernel takes it: the non-slack buses'
+    injections (lists of ``[B]`` rows in bus order) into the schedule's
+    slots (a pad slot injects 0), :func:`tree_newton_plain`, then V and I in
+    bus order, the slack's V at 1+0j and its current the sequential sum over
+    row 0 of Y (the dense form's).  Returns what ``nr_core_plain`` returns;
+    adds nothing to the tree-NR kernel's counters."""
+    ds = st.tree
+    zero = torch.zeros_like(bus_p[0])
+    p = torch.stack(bus_p + [zero])[ds.slot_sel]
+    q = torch.stack(bus_q + [zero])[ds.slot_sel]
+    vr_s, vi_s, ir_s, ii_s, diff, it = tree_newton_plain(ds, p, q, x_tol=x_tol, max_iter=max_iter)
+    vr = torch.cat([torch.ones_like(zero)[None], vr_s[ds.busm1_slot]])
+    vi = torch.cat([zero[None], vi_s[ds.busm1_slot]])
+    yr, yi = st.f["Yre"][0], st.f["Yim"][0]
+    ir0, ii0 = zero, zero
+    for k in range(vr.shape[0]):
+        ir0 = ir0 + (yr[k] * vr[k] - yi[k] * vi[k])
+        ii0 = ii0 + (yr[k] * vi[k] + yi[k] * vr[k])
+    ir = torch.cat([ir0[None], ir_s[ds.busm1_slot]])
+    ii = torch.cat([ii0[None], ii_s[ds.busm1_slot]])
+    return vr, vi, ir, ii, diff, it
+
+
 def fused_transition_plain(st: StepTables, lanes_in, x_tol=1e-5, max_iter=10, chord_iters=0, pivot=False):
     """The plain twin of the fused kernel on packed buffers: ``lanes_in
-    [K_in, B]`` -> ``[K_out, B]``, in the tables' dtype on any device."""
+    [K_in, B]`` -> ``[K_out, B]``, in the tables' dtype on any device, in the
+    form :func:`tree_form` chooses."""
     dm = st.dims
     n_load, n_gen, n_des, d = dm["n_load"], dm["n_gen"], dm["n_des"], dm["d"]
     dt = st.delta_t
@@ -370,10 +435,13 @@ def fused_transition_plain(st: StepTables, lanes_in, x_tol=1e-5, max_iter=10, ch
             aq = dev_q[dd] if k == 0 else aq + dev_q[dd]
         bus_p.append(ap)
         bus_q.append(aq)
-    vr, vi, ir, ii, diff, it = nr_core_plain(
-        st.f["Yre"], st.f["Yim"], st.f["J0inv"], torch.stack(bus_p[1:]), torch.stack(bus_q[1:]),
-        x_tol=x_tol, max_iter=max_iter, chord_iters=chord_iters, pivot=pivot,
-    )
+    if tree_form(st, chord_iters, pivot):
+        vr, vi, ir, ii, diff, it = _tree_solve_plain(st, bus_p[1:], bus_q[1:], x_tol, max_iter)
+    else:
+        vr, vi, ir, ii, diff, it = nr_core_plain(
+            st.f["Yre"], st.f["Yim"], st.f["J0inv"], torch.stack(bus_p[1:]), torch.stack(bus_q[1:]),
+            x_tol=x_tol, max_iter=max_iter, chord_iters=chord_iters, pivot=pivot,
+        )
     inf = torch.full_like(zero, float("inf"))
     p0 = torch.where(torch.isnan(ir[0]), inf, ir[0])
     q0 = torch.where(torch.isnan(ii[0]), inf, -ii[0])
@@ -437,33 +505,41 @@ def _check_kernel_args(st: StepTables, lanes_in):
 
 def fused_transition_cuda(st: StepTables, lanes_in, x_tol=1e-5, max_iter=10, chord_iters=0, pivot=False):
     """Launch the CUDA fused-transition kernel (``csrc/step_fused.cu``) on a
-    packed float32 CUDA buffer ``lanes_in [K_in, B]``; returns ``[K_out,
-    B]``.  Raises on anything else and when the launch fails."""
-    global KERNEL_LAUNCHES
+    packed float32 CUDA buffer ``lanes_in [K_in, B]``, in the form
+    :func:`tree_form` chooses; returns ``[K_out, B]``.  Raises on anything
+    else and when the launch fails."""
+    global KERNEL_LAUNCHES, TREE_LAUNCHES
     from ._build import load_library
 
     _check_kernel_args(st, lanes_in)
     lib = load_library()
     B = lanes_in.shape[1]
     out = torch.empty((sum(st.out_rows), B), dtype=torch.float32, device=lanes_in.device)
-    rc = lib.step_fused_f32(
-        *st.c_args,
-        ctypes.c_float(st.delta_t), ctypes.c_float(st.dt_lamb), lanes_in.data_ptr(), out.data_ptr(), B,
-        ctypes.c_float(x_tol), int(max_iter), int(chord_iters), int(bool(pivot)),
-        torch.cuda.current_stream(lanes_in.device).cuda_stream,
-    )
+    tree = tree_form(st, chord_iters, pivot)
+    common = (ctypes.c_float(st.delta_t), ctypes.c_float(st.dt_lamb), lanes_in.data_ptr(), out.data_ptr(), B,
+              ctypes.c_float(x_tol), int(max_iter))
+    stream = torch.cuda.current_stream(lanes_in.device).cuda_stream
+    if tree:
+        rc = lib.step_fused_tree_f32(*st.c_args, *st.tree_args, *common, stream)
+    else:
+        rc = lib.step_fused_f32(*st.c_args, *common, int(chord_iters), int(bool(pivot)), stream)
     if rc != 0:
         raise RuntimeError("fused-transition kernel launch failed: CUDA error %d" % rc)
     KERNEL_LAUNCHES += 1
+    TREE_LAUNCHES += int(tree)
     return out
 
 
-def step_fused_geometry(st: StepTables, chord_iters: int = 0) -> dict:
+def step_fused_geometry(st: StepTables, chord_iters: int = 0, pivot: bool = False) -> dict:
     """The kernel's launch geometry on the current card for the tables'
-    grid (the fields of ``_build.GEOMETRY_FIELDS``)."""
+    grid, in the form :func:`tree_form` chooses (the fields of
+    ``_build.GEOMETRY_FIELDS``)."""
     from ._build import load_library, read_geometry
 
-    return read_geometry(load_library().step_fused_geometry, st.c_args[2], int(chord_iters))
+    lib = load_library()
+    if tree_form(st, chord_iters, pivot):
+        return read_geometry(lib.step_fused_tree_geometry, st.c_args[2], st.tree_args[1])
+    return read_geometry(lib.step_fused_geometry, st.c_args[2], int(chord_iters))
 
 
 def pack_inputs(des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des):

@@ -29,9 +29,10 @@ parent that gathers its children's terms adds them in the order the plain
 version pushes them.
 
 :func:`solve_pfe_tree` dispatches on the tensor's device: a CUDA float32
-tensor launches the kernel (``csrc/tree_nr.cu``); a CPU tensor runs
-:func:`solve_pfe_tree_plain`.  A CUDA float64 tensor raises: there is no
-fallback from the GPU to the plain version or to the CPU.
+tensor launches the kernel (``csrc/tree_nr.cu``, its solve in
+``csrc/tree_core.cuh``); a CPU tensor runs :func:`solve_pfe_tree_plain`.
+A CUDA float64 tensor raises: there is no fallback from the GPU to the
+plain version or to the CPU.
 """
 
 from __future__ import annotations
@@ -101,7 +102,7 @@ def _count_plain(n_iter, diff, x_tol, max_iter):
 
 def tree_nr_flops_per_lane(S: int, n_iter: int, warm: bool = False) -> int:
     """FLOPs one lane of the tree-NR solve needs for ``n_iter`` NR steps,
-    counted from ``csrc/tree_nr.cu`` (transcendentals and divides count 1,
+    counted from ``csrc/tree_core.cuh`` (transcendentals and divides count 1,
     compares and selects 0; each slot has at most one parent, so the
     children's terms a parent gathers count once per slot).  Per slot: one
     mismatch evaluation 39, one NR step 173 (Jacobian blocks 108,
@@ -307,16 +308,18 @@ def _blocks(a, b, wre, wim, ure, uim, t1r=None, t1i=None):
     return dSa_re, dSm_re, dSa_im, dSm_im
 
 
-def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None):
-    """Plain PyTorch tree-NR solve on the slot layout, batch-last.
+def tree_newton_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None):
+    """Plain PyTorch tree-NR solve on the slot layout, batch-last: the plain
+    twin of ``csrc/tree_core.cuh::newton``, which the tree-NR kernel and the
+    fused transition's tree form share.
 
     ``p, q``: ``[S, B]`` non-slack injections in slot order, float32 or
     float64 on any device.  ``init`` optionally gives a warm point
     ``(theta [S, B], vm [S, B])`` in slot order (:func:`warm_point`); each
     lane starts from it where its mismatch is finite and smaller than the
-    flat start's.  Returns ``(v_re [S, B], v_im [S, B], diff [B], n_iter [B]
-    int32)`` in slot order, and adds the solve to the process's counters as
-    the kernel does.
+    flat start's.  Returns ``(v_re, v_im, i_re, i_im [S, B], diff [B],
+    n_iter [B] int32)`` in slot order: the voltages and currents I = YV of
+    the last evaluated point.  Counts nothing.
     """
     sched = ds.sched
     S, B = p.shape
@@ -453,8 +456,16 @@ def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init
         new = eval_point(theta, vm)
         # Frozen lanes keep their carried values (their point did not move).
         ev = tuple(torch.where(active, a, b) for a, b in zip(new, ev))
-    _count_plain(n_iter, ev[-1], x_tol, max_iter)
-    return ev[0], ev[1], ev[-1], n_iter
+    return ev[0], ev[1], ev[4], ev[5], ev[-1], n_iter
+
+
+def solve_pfe_tree_plain(ds: DeviceSchedule, p, q, x_tol=1e-5, max_iter=10, init=None):
+    """The tree-NR kernel's plain twin: :func:`tree_newton_plain`, returning
+    ``(v_re [S, B], v_im [S, B], diff [B], n_iter [B] int32)`` in slot order
+    and adding the solve to the process's counters as the kernel does."""
+    v_re, v_im, _, _, diff, n_iter = tree_newton_plain(ds, p, q, x_tol=x_tol, max_iter=max_iter, init=init)
+    _count_plain(n_iter, diff, x_tol, max_iter)
+    return v_re, v_im, diff, n_iter
 
 
 def _check_kernel_args(ds: DeviceSchedule, p, q, init):

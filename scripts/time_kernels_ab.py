@@ -15,7 +15,9 @@ as ``chip_smoke.py`` reports) and 20 eager calls (``eager_ms``, the host's
 issue time included), each per launch.  Give the roots as A B B A to see
 the drift between turns.  Prints the card's name and power limit, then one
 JSON line per (root, case); ``out_sha`` hashes the case's outputs, so two
-roots whose kernels agree bit for bit show the same value.
+roots whose kernels agree bit for bit show the same value; ``k1_counts``
+(where the checkout has K1's iteration counters) is what the case's first
+launch added to them.
 """
 
 from __future__ import annotations
@@ -74,17 +76,21 @@ def child(root: str) -> int:
     sys.path.insert(0, root)
     cs = _load_smoke()
     import gym_anm_tpu_torch
-    from gym_anm_tpu_torch.ops import _build
+    from gym_anm_tpu_torch.ops import _build, tree_cuda
 
     if not os.path.abspath(gym_anm_tpu_torch.__file__).startswith(root + os.sep):
         raise RuntimeError("imported %s, not the package under %s" % (gym_anm_tpu_torch.__file__, root))
     t0 = time.perf_counter()
     _build.load_library()
     print(json.dumps({"root": os.path.relpath(root, REPO), "build_s": time.perf_counter() - t0}), flush=True)
+    counts = getattr(tree_cuda, "iteration_counts", None)
     for row, run in cases(cs):
         h = hashlib.sha256()
+        c0 = None if counts is None else counts("cuda").tolist()
         for t in run():
             h.update(t.cpu().numpy().tobytes())
+        if c0 is not None:  # what one launch added to K1's iteration counters
+            row["k1_counts"] = [b - a for a, b in zip(c0, counts("cuda").tolist())]
         row.update({
             "root": os.path.relpath(root, REPO), "out_sha": h.hexdigest()[:16],
             "ms": cs.event_ms(run, 20, 5, graph=True), "eager_ms": cs.event_ms(run, 20, 5),

@@ -12,6 +12,11 @@ has only PyTorch:
   pivoting on NaN, infinite and diverging lanes and on systems whose pivot searches
   meet ties and NaN columns, and K3 on a projection whose two nearest
   candidates tie;
+* K3's tree form at B=4096 on ANM6Easy, feeder33 and Baran and Wu's feeder
+  with the ``fused`` budget: bit for bit its plain twin, and its V, mismatch
+  and iterations K1's on the same injections, counted as a tree launch and
+  adding nothing to K1's counters; K3's dense form (pivoting, a chord
+  prefix, a meshed grid) bit for bit its twin, counting no tree launch;
 * the wrappers refuse float64 and non-contiguous inputs, the dense kernels
   grids beyond their 64-unknown system, and a launch whose lanes do not fit
   a block's shared memory raises;
@@ -41,8 +46,8 @@ has only PyTorch:
   on the card, box-slants within 2e-5, and the card's default form;
 * ``BatchedEnv.step_fn`` replayed from its CUDA graph against the eager
   step, bit for bit, at B=4096: two pool rollouts of ANM6Easy (``tree``) and
-  feeder33 (``fused``) with the same kernel launches, and one
-  ``PPOTrainer.train_step``;
+  feeder33 (``fused``, every K3 launch in the tree form) with the same
+  kernel launches, and one ``PPOTrainer.train_step``;
 * K1's iteration counters: a launch adds what the plain twin's count of the
   same solve adds; graphed pool rollouts of ANM6Easy and Baran and Wu's
   feeder add what the eager rollouts' launches returned, and equal the eager
@@ -300,6 +305,99 @@ def test_cuda_step_kernel_matches_plain(env, chord, B):
     torch.cuda.synchronize()
     assert step_cuda.KERNEL_LAUNCHES == before + 1
     p = step_cuda.unpack_outputs(st, step_cuda.fused_transition_plain(st, lanes, **kw))
+    for f in k._fields:
+        _assert_same(getattr(k, f), getattr(p, f))
+    assert float((k.diff <= 1e-5).float().mean()) > 0.9
+
+
+def _fused_core(env_name):
+    if env_name == "baranwu33":
+        from gym_anm_tpu_torch.envs.baranwu33 import make_core as baranwu33_make_core
+
+        return baranwu33_make_core(torch.float32, "cuda", pf_method="fused")
+    return check.task_make_core(env_name)(dtype=torch.float32, device="cuda", pf_method="fused")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_name", ["anm6easy", "feeder33", "baranwu33"])
+def test_cuda_step_tree_form_matches_plain_and_k1(env_name):
+    """At B=4096 with the ``fused`` budget of 15, K3 solves in the tree form:
+    one tree launch, nothing added to K1's counters, every output row its
+    plain twin's bit for bit; with the same bus injections and budget, its
+    V, mismatch and iterations are K1's bit for bit."""
+    _need_cuda()
+    core = _fused_core(env_name)
+    st, ds = core.grid.step, core.grid.tree
+    assert step_cuda.tree_form(st) and st.tree is ds
+    B, kw = 4096, dict(x_tol=1e-5, max_iter=15)
+    # The reported geometry is the tree form's: less shared memory a lane
+    # than the dense form's, and every lane of the batch resident at once.
+    tree, dense = step_cuda.step_fused_geometry(st), step_cuda.step_fused_geometry(st, pivot=True)
+    per_lane = lambda g: g["smem_bytes_per_block"] / g["lanes_per_block"]
+    assert per_lane(tree) < per_lane(dense)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tree["blocks_per_sm"] * tree["lanes_per_block"] * sms >= B
+    lanes = _step_lanes(core, B, 3)
+    counters = lambda: (step_cuda.KERNEL_LAUNCHES, step_cuda.TREE_LAUNCHES, tree_cuda.KERNEL_LAUNCHES,
+                        tree_cuda.LANE_SOLVES, tree_cuda.iteration_counts("cuda").tolist())
+    c0 = counters()
+    k = step_cuda.unpack_outputs(st, step_cuda.fused_transition_cuda(st, lanes, **kw))
+    torch.cuda.synchronize()
+    assert counters() == (c0[0] + 1, c0[1] + 1) + c0[2:]
+    p = step_cuda.unpack_outputs(st, step_cuda.fused_transition_plain(st, lanes, **kw))
+    assert counters() == (c0[0] + 1, c0[1] + 1) + c0[2:]
+    for f in k._fields:
+        _assert_same(getattr(k, f), getattr(p, f))
+    assert float((k.diff <= 1e-5).float().mean()) > 0.9
+    zero = torch.zeros((1, B), device="cuda")
+    pT = torch.cat([k.bus_p.T[1:], zero])[ds.slot_sel].contiguous()
+    qT = torch.cat([k.bus_q.T[1:], zero])[ds.slot_sel].contiguous()
+    vr, vi, diff, it = tree_cuda.solve_pfe_tree_cuda(ds, pT, qT, **kw)
+    _assert_same(k.v_re[:, 1:], vr[ds.busm1_slot].T)
+    _assert_same(k.v_im[:, 1:], vi[ds.busm1_slot].T)
+    _assert_same(k.diff[:, 0], diff)
+    _assert_same(k.n_iter[:, 0], it.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chord, pivot", [(0, True), (16, True)], ids=["pivot", "chord-pivot"])
+@pytest.mark.parametrize("env", ["anm6easy", "feeder33"])
+def test_cuda_step_dense_form_matches_plain(env, chord, pivot):
+    """With pivoting (and a chord prefix) K3 keeps its dense form, bit for
+    bit its plain twin, counting no tree launch."""
+    _need_cuda()
+    core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method="fused")
+    st = core.grid.step
+    lanes = _step_lanes(core, 1000, 4)
+    kw = dict(x_tol=1e-5, max_iter=15, chord_iters=chord, pivot=pivot)
+    assert not step_cuda.tree_form(st, chord, pivot)
+    before = step_cuda.KERNEL_LAUNCHES, step_cuda.TREE_LAUNCHES
+    k = step_cuda.unpack_outputs(st, step_cuda.fused_transition_cuda(st, lanes, **kw))
+    torch.cuda.synchronize()
+    assert (step_cuda.KERNEL_LAUNCHES, step_cuda.TREE_LAUNCHES) == (before[0] + 1, before[1])
+    p = step_cuda.unpack_outputs(st, step_cuda.fused_transition_plain(st, lanes, **kw))
+    for f in k._fields:
+        _assert_same(getattr(k, f), getattr(p, f))
+    assert float((k.diff <= 1e-5).float().mean()) > 0.9
+
+
+@pytest.mark.gpu
+def test_cuda_step_meshed_grid_runs_the_dense_form():
+    """ANM6 with one more branch (a meshed grid) has no tree schedule: K3
+    runs its dense form there, bit for bit its plain twin, and counts no
+    tree launch.  Its lane layout is ANM6's, so ANM6Easy's lanes serve."""
+    _need_cuda()
+    net = dict(anm6_network)
+    net["branch"] = np.concatenate([anm6_network["branch"], [[3, 4, 0.03, 0.06, 0.0, 18, 1, 0]]])
+    g = GridTensors.from_spec(build_grid(net, 0.25, 100, dtype=np.float32)[0], "cuda", torch.float32)
+    st = g.step
+    assert g.tree is None and st.tree is None and not step_cuda.tree_form(st)
+    lanes = _step_lanes(make_core(torch.float32, "cuda", pf_method="fused"), 1000, 6)
+    before = step_cuda.KERNEL_LAUNCHES, step_cuda.TREE_LAUNCHES
+    k = step_cuda.unpack_outputs(st, step_cuda.fused_transition_cuda(st, lanes, x_tol=1e-5, max_iter=10))
+    torch.cuda.synchronize()
+    assert (step_cuda.KERNEL_LAUNCHES, step_cuda.TREE_LAUNCHES) == (before[0] + 1, before[1])
+    p = step_cuda.unpack_outputs(st, step_cuda.fused_transition_plain(st, lanes, x_tol=1e-5, max_iter=10))
     for f in k._fields:
         _assert_same(getattr(k, f), getattr(p, f))
     assert float((k.diff <= 1e-5).float().mean()) > 0.9
@@ -812,7 +910,8 @@ def test_cuda_projection_forms(name, dtype):
 def _pool_rollouts(env_name, pf_method, eager, B=4096, segments=2):
     """Two 64-step pool rollouts of the task at B from one seed, through the
     graphed ``step_fn`` or the eager step: ``(final state, [(reward,
-    terminated)] a segment, K1/K2/K3 launches, graph replays)``."""
+    terminated)] a segment, K1/K2/K3 launches and K3's tree launches, graph
+    replays)``."""
     from gym_anm_tpu_torch.envs import batched
 
     core = check.task_make_core(env_name)(dtype=torch.float32, device="cuda", pf_method=pf_method)
@@ -820,13 +919,14 @@ def _pool_rollouts(env_name, pf_method, eager, B=4096, segments=2):
     if eager:
         env.step_fn = env._step_eager
     es, _ = env.reset()
-    l0, r0 = _launches(), batched.STEP_GRAPH_REPLAYS
+    launches = lambda: _launches() + (step_cuda.TREE_LAUNCHES,)
+    l0, r0 = launches(), batched.STEP_GRAPH_REPLAYS
     ys = []
     for _ in range(segments):
         es, y = env.rollout(es, 64)
         ys.append(y)
     torch.cuda.synchronize()
-    return es, ys, [b - a for a, b in zip(l0, _launches())], batched.STEP_GRAPH_REPLAYS - r0
+    return es, ys, [b - a for a, b in zip(l0, launches())], batched.STEP_GRAPH_REPLAYS - r0
 
 
 @pytest.mark.gpu
@@ -836,7 +936,9 @@ def test_cuda_step_graph_rollout_matches_eager(env_name, pf_method, k):
     """Two pool rollouts at B=4096 replayed from the step's CUDA graph equal
     the eager step's bit for bit (rewards, terminations, every field of the
     final state), and launch the path's kernel as often: once a step and once
-    a segment's pool (and once a reset attempt)."""
+    a segment's pool (and once a reset attempt); a replay counts K3's tree
+    launches as the eager steps do, every K3 launch on feeder33's radial
+    grid."""
     _need_cuda()
     from gym_anm_tpu_torch.core.env_core import state_tensors
 
@@ -849,7 +951,8 @@ def test_cuda_step_graph_rollout_matches_eager(env_name, pf_method, k):
     for a, b in zip(state_tensors(es_g), state_tensors(es_e)):
         _assert_same(a, b)
     assert launches_g == launches_e and launches_g[k] >= 2 * 64 + 2
-    assert sum(launches_g) == launches_g[k]
+    assert sum(launches_g[:3]) == launches_g[k]
+    assert launches_g[3] == (launches_g[2] if pf_method == "fused" else 0)
 
 
 @pytest.mark.gpu

@@ -8,7 +8,13 @@ against the JAX package's.
   interpret mode) are recorded by ``scripts/gen_torch_test_refs.py`` in
   ``tests/data/torch_refs_step.npz``.
 * ``fused_transition_plain`` in float64 against the port's unfused
-  ``"pallas"`` transition on the ANM6 and feeder33 grids, to 1e-9.
+  ``"pallas"`` and ``"tree"`` transitions on the ANM6, feeder33 and Baran
+  and Wu grids, to 1e-9: on these radial grids ``"fused"`` solves in the
+  tree form, ``"fused_hybrid"`` in the dense one.
+* The form of the solve follows the grid and the call: the tree form on a
+  radial grid without a chord prefix or pivoting, the dense one on a meshed
+  grid (ANM6 with one more branch) and with either; neither adds to the
+  tree-NR kernel's counters.
 * The dispatch: the semantic downgrade of ``"fused"`` on grids without a
   storage unit, and the kernel wrapper's refusals on the CPU.
 
@@ -26,11 +32,18 @@ from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
 from gym_anm_tpu_torch.core.state import SIM_FIELDS
 from gym_anm_tpu_torch.core.transition import resolve_solver_path, transition
 from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
-from gym_anm_tpu_torch.envs.feeder_networks import make_feeder_network
-from gym_anm_tpu_torch.ops import nr_cuda, step_cuda
+from gym_anm_tpu_torch.envs.feeder_networks import make_baran_wu_33_network, make_feeder_network
+from gym_anm_tpu_torch.ops import nr_cuda, step_cuda, tree_cuda
 
 
-NETWORKS = {"anm6": anm6_network, "feeder33": make_feeder_network()}
+NETWORKS = {"anm6": anm6_network, "feeder33": make_feeder_network(), "baranwu33": make_baran_wu_33_network()}
+
+
+def _meshed_anm6():
+    """ANM6 with one more branch, from bus 3 to bus 4: a meshed grid."""
+    net = dict(anm6_network)
+    net["branch"] = np.concatenate([anm6_network["branch"], [[3, 4, 0.03, 0.06, 0.0, 18, 1, 0]]])
+    return net
 
 
 def _set_points(spec, B, seed, dtype):
@@ -75,12 +88,15 @@ def test_fused_matches_pallas_step_kernel_interpret():
     np.testing.assert_allclose(ours.penalty.numpy()[both], theirs["penalty"][both], atol=5e-3)
 
 
-@pytest.mark.parametrize("name", ["anm6", "feeder33"])
+@pytest.mark.parametrize("name", ["anm6", "feeder33", "baranwu33"])
 def test_fused_plain_matches_unfused_f64(name):
     spec, _ = build_grid(NETWORKS[name], 0.25, 100, dtype=np.float64)
     g = GridTensors.from_spec(spec, "cpu", torch.float64)
+    assert step_cuda.tree_form(g.step) and g.tree is g.step.tree
     args = {k: torch.tensor(v) for k, v in _set_points(spec, 64, 1, np.float64).items()}
-    for fused, unfused, kw in (("fused", "pallas", {}), ("fused_hybrid", "hybrid", dict(chord_iters=8, nr_pivot=True))):
+    cases = (("fused", "pallas", {}), ("fused", "tree", {}),
+             ("fused_hybrid", "hybrid", dict(chord_iters=8, nr_pivot=True)))
+    for fused, unfused, kw in cases:
         a = transition(g, **args, pf_method=fused, x_tol=1e-9, max_iter=12, **kw)
         b = transition(g, **args, pf_method=unfused, x_tol=1e-9, max_iter=12, **kw)
         conv = b.pfe_converged.numpy()
@@ -92,6 +108,36 @@ def test_fused_plain_matches_unfused_f64(name):
             )
         for f in ("reward", "e_loss", "penalty"):
             np.testing.assert_allclose(getattr(a, f).numpy()[conv], getattr(b, f).numpy()[conv], rtol=1e-9, atol=1e-9)
+
+
+def test_fused_form_follows_the_grid_and_the_call(monkeypatch):
+    radial, _ = build_grid(anm6_network, 0.25, 100, dtype=np.float64)
+    meshed, _ = build_grid(_meshed_anm6(), 0.25, 100, dtype=np.float64)
+    g, gm = (GridTensors.from_spec(spec, "cpu", torch.float64) for spec in (radial, meshed))
+    assert gm.tree is None and gm.step.tree is None and gm.step.tree_args == ()
+    calls = []
+    newton = step_cuda.tree_newton_plain
+    monkeypatch.setattr(step_cuda, "tree_newton_plain", lambda *a, **k: calls.append(1) or newton(*a, **k))
+    args = {k: torch.tensor(v) for k, v in _set_points(radial, 64, 2, np.float64).items()}
+    cases = ((g, {}, True), (g, dict(chord_iters=16), False), (g, dict(pivot=True), False), (gm, {}, False),
+             (gm, dict(chord_iters=16, pivot=True), False))
+    for grid, kw, tree in cases:
+        assert step_cuda.tree_form(grid.step, **kw) == tree
+        counters = (step_cuda.TREE_LAUNCHES, tree_cuda.LANE_SOLVES, tree_cuda.iteration_counts("cpu").tolist())
+        del calls[:]
+        lanes = step_cuda.pack_inputs(*args.values())
+        out = step_cuda.fused_transition_plain(grid.step, lanes, x_tol=1e-9, max_iter=12, **kw)
+        assert len(calls) == int(tree)
+        assert counters == (step_cuda.TREE_LAUNCHES, tree_cuda.LANE_SOLVES, tree_cuda.iteration_counts("cpu").tolist())
+        # Either form solves the grid's own power flow: the meshed grid's
+        # dense form matches its unfused dense transition.
+        if grid is gm and not kw:
+            a = step_cuda.unpack_outputs(grid.step, out)
+            b = transition(gm, **args, pf_method="pallas", x_tol=1e-9, max_iter=12)
+            conv = b.pfe_converged.numpy()
+            assert conv.mean() > 0.5 and np.array_equal((a.diff[:, 0] <= 1e-9).numpy(), conv)
+            np.testing.assert_allclose(a.v_re.numpy()[conv], b.state.bus_v_re.numpy()[conv], rtol=1e-9, atol=1e-9)
+            np.testing.assert_allclose(a.i_im.numpy()[conv], b.state.bus_i_im.numpy()[conv], rtol=1e-9, atol=1e-9)
 
 
 def test_dispatch_and_wrapper_refusals():
@@ -141,10 +187,13 @@ def test_tables_and_flops_follow_jax():
         assert st.structure.positions["des_pos"] == tuple(np.asarray(spec.des_pos))
         assert list(st.c_args[2]) == [st.dims[k] for k in step_cuda.DIMS]
         assert step_cuda.fused_step_flops_per_lane(spec, 10, 16, True) == jax_flops(spec, 10, 16, True)
-        # The kernel's own count: its solve plus a part that the iterations
-        # do not change, under the TPU count, which charges every candidate.
-        n = spec.n_bus
-        rest = [step_cuda.step_fused_flops_per_lane(st, k, c) - nr_cuda.nr_dense_flops_per_lane(n, k, c)
+        # The kernel's own count: its solve (the dense form's, or the tree
+        # form's and the slack's current) plus a part that the iterations do
+        # not change, under the TPU count, which charges every candidate.
+        n, S = spec.n_bus, st.tree.sched.S
+        rest = [step_cuda.step_fused_flops_per_lane(st, k, c, pivot=True) - nr_cuda.nr_dense_flops_per_lane(n, k, c)
                 for k, c in ((0, 0), (3, 0), (2, 16))]
-        assert rest[0] == rest[1] == rest[2] > 0
+        rest += [step_cuda.step_fused_flops_per_lane(st, k) - tree_cuda.tree_nr_flops_per_lane(S, k) - 8 * n
+                 for k in (0, 3)]
+        assert rest[0] == rest[1] == rest[2] == rest[3] == rest[4] > 0
         assert rest[0] < jax_flops(spec, 0, 0, True) - nr_cuda.nr_flops_per_lane(n, 0, 0, True)
