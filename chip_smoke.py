@@ -16,8 +16,9 @@ the port's paths on the card, one JSON line per phase:
    dense-NR kernel (K2) on ANM6 and feeder33 with (chord 0, pivot off) and
    (chord 16, pivot on), each cold and warm-started as K1's rows are; the
    fused-transition kernel (K3) on ANM6 and
-   feeder33 for ``fused`` and ``fused_hybrid``, from inputs a rollout of the
-   task gives.  The rule: converged flags agree on >= 99% of lanes; V (K1,
+   feeder33 for ``fused`` and ``fused_hybrid`` and on feeder141 for
+   ``fused`` (its tree form at S = 140), from inputs a rollout of the task
+   gives.  The rule: converged flags agree on >= 99% of lanes; V (K1,
    K2) or every output field (K3) within 5e-5 on lanes both versions
    converged (the penalty, which scales voltages by lamb, within 5e-3);
    |dn_iter| <= 1 on >= 97% of those lanes.  Each row also says whether it
@@ -245,7 +246,11 @@ NR_CASES = (
     ("anm6", 0.3, 0, False, 10), ("anm6", 0.3, 16, True, 6),
     ("feeder33", 0.05, 0, False, 15), ("feeder33", 0.05, 16, True, 6),
 )
-STEP_ENVS = ("anm6easy", "feeder33")
+# Fused-transition checks: (task, pf_method).
+STEP_CASES = (
+    ("anm6easy", "fused"), ("anm6easy", "fused_hybrid"), ("feeder33", "fused"), ("feeder33", "fused_hybrid"),
+    ("feeder141", "fused"),
+)
 V_ATOL = 5e-5
 PENALTY_ATOL = 5e-3
 # The card's peak rates (NVIDIA H100 SXM data sheet): float32 outside the
@@ -341,7 +346,7 @@ def path_kernel(core):
     """The kernel a core's solver path launches (None for the plain solver)."""
     from gym_anm_tpu_torch.core.transition import resolve_solver_path
 
-    path, _ = resolve_solver_path(core.grid, core.pf_method)
+    path, _ = resolve_solver_path(core.grid, core.pf_method, core.nr_pivot)
     return {"tree_kernel": "tree_nr", "nr_kernel": "nr_dense", "fused_kernel": "step_fused"}.get(path)
 
 
@@ -544,43 +549,42 @@ def phase_step_vs_plain():
     from gym_anm_tpu_torch.ops import step_cuda
 
     rows = []
-    for env in STEP_ENVS:
-        for method in ("fused", "fused_hybrid"):
-            core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method=method)
-            st = core.grid.step
-            lanes = step_lanes(core)
-            chord = core.chord_iters if method == "fused_hybrid" else 0
-            kw = dict(x_tol=core.x_tol, max_iter=core.max_iter, chord_iters=chord, pivot=core.nr_pivot)
-            kern = lambda: step_cuda.fused_transition_cuda(st, lanes, **kw)
-            plain = lambda: step_cuda.fused_transition_plain(st, lanes, **kw)
-            k = step_cuda.unpack_outputs(st, kern())
-            p = step_cuda.unpack_outputs(st, plain())
-            conv_k, conv_p = k.diff[:, 0] <= core.x_tol, p.diff[:, 0] <= core.x_tol
-            fields = [f for f in k._fields if f not in ("penalty", "n_iter")]
-            it_k, it_p = k.n_iter[:, 0], p.n_iter[:, 0]
-            agree = agreement(conv_k, conv_p, [(getattr(k, f) - getattr(p, f)).T for f in fields], it_k, it_p)
-            pen = agreement(conv_k, conv_p, [(k.penalty - p.penalty).T], it_k, it_p)["max_abs_err"]
-            its = collections.Counter(int(i) for i in it_k.cpu().numpy())
-            flops = sum(
-                c * step_cuda.step_fused_flops_per_lane(st, i - min(i, chord), min(i, chord), core.nr_pivot)
-                for i, c in its.items()
-            )
-            tables = sum(t.numel() for t in st.f.values()) + sum(t.numel() for t in st.i.values())
-            nbytes = 4 * ((sum(st.in_rows) + sum(st.out_rows)) * KERNEL_B + tables)
-            row = {
-                "phase": "kernel_vs_plain", "kernel": "step_fused", "env": env, "pf_method": method,
-                "chord_iters": chord, "max_iter": core.max_iter, "B": KERNEL_B, "mean_iters": float(it_k.mean()),
-                "form": "tree" if step_cuda.tree_form(st, chord, core.nr_pivot) else "dense",
-                **agree, "penalty_max_abs_err": pen,
-                "ms": event_ms(kern, 20, 5, graph=True), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
-                "geometry": step_cuda.step_fused_geometry(st, chord, core.nr_pivot),
-            }
-            row["bit_identical"] = bit_identical(row) and pen == 0.0
-            emit(row)
-            check_agreement(row)
-            if pen > PENALTY_ATOL:
-                raise AssertionError("fused kernel's penalty disagrees with its plain version: %s" % row)
-            rows.append(row)
+    for env, method in STEP_CASES:
+        core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method=method)
+        st = core.grid.step
+        lanes = step_lanes(core)
+        chord = core.chord_iters if method == "fused_hybrid" else 0
+        kw = dict(x_tol=core.x_tol, max_iter=core.max_iter, chord_iters=chord, pivot=core.nr_pivot)
+        kern = lambda: step_cuda.fused_transition_cuda(st, lanes, **kw)
+        plain = lambda: step_cuda.fused_transition_plain(st, lanes, **kw)
+        k = step_cuda.unpack_outputs(st, kern())
+        p = step_cuda.unpack_outputs(st, plain())
+        conv_k, conv_p = k.diff[:, 0] <= core.x_tol, p.diff[:, 0] <= core.x_tol
+        fields = [f for f in k._fields if f not in ("penalty", "n_iter")]
+        it_k, it_p = k.n_iter[:, 0], p.n_iter[:, 0]
+        agree = agreement(conv_k, conv_p, [(getattr(k, f) - getattr(p, f)).T for f in fields], it_k, it_p)
+        pen = agreement(conv_k, conv_p, [(k.penalty - p.penalty).T], it_k, it_p)["max_abs_err"]
+        its = collections.Counter(int(i) for i in it_k.cpu().numpy())
+        flops = sum(
+            c * step_cuda.step_fused_flops_per_lane(st, i - min(i, chord), min(i, chord), core.nr_pivot)
+            for i, c in its.items()
+        )
+        tables = sum(t.numel() for t in st.f.values()) + sum(t.numel() for t in st.i.values())
+        nbytes = 4 * ((sum(st.in_rows) + sum(st.out_rows)) * KERNEL_B + tables)
+        row = {
+            "phase": "kernel_vs_plain", "kernel": "step_fused", "env": env, "pf_method": method,
+            "chord_iters": chord, "max_iter": core.max_iter, "B": KERNEL_B, "mean_iters": float(it_k.mean()),
+            "form": "tree" if step_cuda.tree_form(st, chord, core.nr_pivot) else "dense",
+            **agree, "penalty_max_abs_err": pen,
+            "ms": event_ms(kern, 20, 5, graph=True), "plain_ms": event_ms(plain, 1, 3), **bound(flops, nbytes),
+            "geometry": step_cuda.step_fused_geometry(st, chord, core.nr_pivot),
+        }
+        row["bit_identical"] = bit_identical(row) and pen == 0.0
+        emit(row)
+        check_agreement(row)
+        if pen > PENALTY_ATOL:
+            raise AssertionError("fused kernel's penalty disagrees with its plain version: %s" % row)
+        rows.append(row)
     return rows
 
 

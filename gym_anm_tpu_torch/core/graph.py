@@ -25,7 +25,7 @@ def graphed(core, device: torch.device) -> bool:
     """Whether a step of ``core`` on ``device`` replays a graph: on a
     :data:`GRAPH_DEVICE`, where the core solves in a kernel (the plain
     solvers end their loops on a host read, which no graph holds)."""
-    return device.type == GRAPH_DEVICE and capturable(resolve_solver_path(core.grid, core.pf_method)[0])
+    return device.type == GRAPH_DEVICE and capturable(resolve_solver_path(core.grid, core.pf_method, core.nr_pivot)[0])
 
 
 def graph_key(core, tensors) -> tuple:

@@ -34,15 +34,16 @@ import torch
 
 from ..ops.nr_cuda import NN_MAX, solve_pfe_nr
 from ..ops.power_flow import cmul as _cmul, solve_pfe
-from ..ops.step_cuda import fused_transition
+from ..ops.step_cuda import fused_transition, tree_form
 from ..ops.tree_cuda import solve_pfe_tree
 from .grid import GridTensors, POLY_ROW_P_CAP, POLY_ROW_P_FLOOR
 from .state import SimState
 
 # Every solver path of the JAX package.
 PF_METHODS = ("tree", "tree_xla", "pallas", "hybrid", "fused", "fused_hybrid", "scan", "while", "xla_hybrid")
-# The methods only the dense kernels compute; they take systems of at most
-# NN_MAX unknowns.
+# The methods the dense kernels compute; they take systems of at most NN_MAX
+# unknowns.  Past NN_MAX, "fused" runs on a radial grid without pivoting in
+# the whole-transition kernel's tree form, which takes any size.
 DENSE_KERNEL_METHODS = ("pallas", "fused", "fused_hybrid")
 
 
@@ -148,11 +149,12 @@ def dense_kernels_refusal(pf_method: str, n_bus: int) -> ValueError:
     n = 2 * (n_bus - 1)
     return ValueError(
         "pf_method=%r unsupported at %d buses: the per-lane %d x %d Jacobian exceeds the dense kernels' %d "
-        "unknowns. Use 'tree' (exact), 'hybrid' (chord-only) or 'scan'." % (pf_method, n_bus, n, n, NN_MAX)
+        "unknowns. Use 'tree' (exact), 'fused' (exact, on a radial grid without pivoting), 'hybrid' "
+        "(chord-only) or 'scan'." % (pf_method, n_bus, n, n, NN_MAX)
     )
 
 
-def resolve_solver_path(g: GridTensors, pf_method: str):
+def resolve_solver_path(g: GridTensors, pf_method: str, nr_pivot: bool):
     """The solver :func:`transition` dispatches to, as ``(path,
     effective_pf_method)``; the single source of the dispatch.
 
@@ -167,9 +169,12 @@ def resolve_solver_path(g: GridTensors, pf_method: str):
     JAX package's semantic downgrades: a grid without a load, a generator
     and a storage unit runs ``"fused"`` as ``"pallas"`` and
     ``"fused_hybrid"`` as ``"hybrid"``.  On a grid of more than ``NN_MAX``
-    unknowns, which the dense kernels do not take, ``"pallas"``,
-    ``"fused"`` and ``"fused_hybrid"`` raise (:func:`dense_kernels_refusal`)
-    and ``"hybrid"`` is the JAX package's chord-only ablation of that size
+    unknowns, which the dense kernels do not take, ``"fused"`` runs the
+    whole-transition kernel in its tree form where the grid has one and
+    ``nr_pivot`` is off (:func:`~gym_anm_tpu_torch.ops.step_cuda.tree_form`);
+    otherwise ``"pallas"``, ``"fused"`` and ``"fused_hybrid"`` raise
+    (:func:`dense_kernels_refusal`).  ``"hybrid"`` is there the JAX
+    package's chord-only ablation of that size
     (``gym_anm_tpu/envs/feeder141.py``), which both packages compute on the
     plain solver.
     """
@@ -183,6 +188,8 @@ def resolve_solver_path(g: GridTensors, pf_method: str):
             )
         return ("tree_kernel" if pf_method == "tree" else "tree_plain"), pf_method
     if 2 * (g.spec.n_bus - 1) > NN_MAX:
+        if pf_method == "fused" and g.step is not None and tree_form(g.step, pivot=nr_pivot):
+            return "fused_kernel", "fused"
         if pf_method in DENSE_KERNEL_METHODS:
             raise dense_kernels_refusal(pf_method, g.spec.n_bus)
         return "torch", pf_method
@@ -276,7 +283,7 @@ def transition(
     and the convergence decision is unchanged.  The fused paths have no warm
     start and raise.
     """
-    path, method = resolve_solver_path(g, pf_method)
+    path, method = resolve_solver_path(g, pf_method, nr_pivot)
     if v_init is not None and path == "fused_kernel":
         # As in the JAX package: the whole-transition kernel has no warm form.
         raise ValueError(

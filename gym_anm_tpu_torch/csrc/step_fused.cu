@@ -28,12 +28,17 @@
 // card holds at once.  The dense form eliminates the lane's whole
 // [2m, 2m | F] system (64 pivot steps at feeder33's 33 buses), which at
 // ~20 KB of shared memory a lane keeps 11 lanes on an SM, so 4,096 lanes
-// take 2.8 latency-bound waves.  A radial grid's Jacobian eliminates leaf
-// to root with no fill-in, so the tree form solves each NR step in O(S)
-// 2x2-block operations from 22 planes of S floats (2.8 KB at S = 32): with
-// the stages' own state a lane takes 3.7 KB, and 4,096 lanes fit the card
-// in one wave (kTreeThreadsPerSM).  Outside the solve: serial per-lane
-// work, the largest part the projection (47 candidates for each
+// take 2.8 latency-bound waves; it takes at most 64 unknowns.  A radial
+// grid's Jacobian eliminates leaf to root with no fill-in, so the tree form
+// solves each NR step in O(S) 2x2-block operations from 22 planes of S
+// floats (2.8 KB at S = 32), at any S whose lane a block can hold: with the
+// stages' own state a lane takes 3.7 KB at S = 32, and 4,096 lanes fit the
+// card in one wave (kTreeThreadsPerSM).  Past kLargeSlots the planes
+// dominate (12.3 KB of a lane's 13.7 KB at the 141-bus feeder's S = 140):
+// there the scratch overlays planes that are dead in its stage (WideClass),
+// 16 lanes share a block, one block an SM, and 4,096 lanes take two waves,
+// as in the tree-NR kernel's two blocks of 8.  Outside the solve: serial
+// per-lane work, the largest part the projection (47 candidates for each
 // controllable device, each tested against every polytope row).  The
 // design answers both with one team of T threads per lane, the team of
 // the NR solve: loads, potentials and the polytope rows split by device
@@ -46,7 +51,11 @@
 // and the branch penalties) stay sequential on one thread.  dev_p, dev_q
 // and the potentials live in the lane's shared-memory region; the polytope
 // rows and the branch penalties are scratch, overlaid on the dense form's
-// NR system and kept apart from the tree form's planes.
+// NR system; the tree form keeps them after its planes or, past
+// kLargeSlots, overlays them on planes the solve is not using.  Each lane's
+// first thread adds the lane's iterations, and whether it ended
+// unconverged, to the process's device counters, so a replayed CUDA graph
+// counts too.
 //
 // Layout: the lane inputs arrive packed batch-last, [K_in, B] (soc, P_load,
 // P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des); the outputs leave
@@ -55,8 +64,8 @@
 // per block, the tree form the schedule; the other grid tables are small
 // device arrays read through the read-only cache.  The tree form returns V
 // and I (the slack's current the sequential sum over row 0 of Y, as the
-// dense form takes it) in bus order, and adds nothing to the tree-NR
-// kernel's iteration counters.
+// dense form takes it) in bus order; its iterations go to this kernel's
+// counters, not to the tree-NR kernel's.
 //
 // Interface: plain C, loaded with ctypes.  The launch goes on the caller's
 // stream, does not synchronise and allocates nothing; the function returns
@@ -87,11 +96,24 @@ enum TDim { TD_S, TD_MAXC, TD_NLEVELS, N_TDIM };
 // bound): 32 warps, so one wave holds 4,096 lanes of 32 slots on 132 SMs.
 constexpr int kTreeThreadsPerSM = 1024;
 
+// The tree form's size classes: treecore's two (S <= kSmallSlots, then
+// S <= kLargeSlots, the 33-bus feeders) keep the scratch after the planes;
+// past kLargeSlots WideClass overlays it on the planes and a block holds up
+// to 16 lanes: at S = 140 one block of 16 such lanes fits an SM's shared
+// memory, where two blocks of 8 lanes that keep the scratch do not.
+constexpr int kLargeSlots = 32;
+using WideClass = treecore::SizeClass<32, 16>;
+template <class C>
+constexpr bool kScratchInPlanes = false;
+template <>
+constexpr bool kScratchInPlanes<WideClass> = true;
+
 struct Step {
   const float* f[N_FTAB];
   const int* i[N_ITAB];
   int dim[N_DIM];
   float delta_t, dt_lamb;
+  unsigned long long* counts;  // [2] the process's counters
 };
 
 // The grid's schedule for the tree form.
@@ -121,9 +143,18 @@ __host__ __device__ inline nrcore::Layout step_layout(const int* dim, int team) 
 }
 
 // The tree form's floats after the lane's planes: dev_p, dev_q, the
-// potentials and the scratch.
+// potentials and (unless class C overlays it on the planes) the scratch.
+template <class C>
 __host__ __device__ inline int tree_tail_floats(const int* dim) {
-  return 2 * dim[D_D] + dim[D_NGEN] + step_scratch(dim);
+  return 2 * dim[D_D] + dim[D_NGEN] + (kScratchInPlanes<C> ? 0 : step_scratch(dim));
+}
+
+// The epilogue's count on the process's counters, by the lane's first
+// thread: its iterations and whether it ended unconverged (NaN included).
+__device__ inline void count(const Step& S, int t, int it, float diff, float x_tol) {
+  if (t != 0) return;
+  atomicAdd(&S.counts[0], (unsigned long long)it);
+  if (!(diff <= x_tol)) atomicAdd(&S.counts[1], 1ull);
 }
 
 // Lane b's columns of the packed inputs and outputs.  A lane past the batch
@@ -462,11 +493,15 @@ step_fused_kernel(Step S, const float* __restrict__ in, float* __restrict__ out,
   const float diff = nrcore::solve<C>(tm, tv, ln, x_tol, max_iter, chord_iters, pivot != 0, &it);
   finish<T>(tm, S, io, ln.s + Lay.vr, ln.s + Lay.vi, ln.s + Lay.ir, ln.s + Lay.ii, dev_p, dev_q, p_pot, ln.s, diff,
             it);
+  count(S, tm.t, it, diff, x_tol);
 }
 
 // The tree form: treecore::newton on the grid's slots.  Every thread of a
 // warp runs to the end (the solve's votes are warp-wide); a lane past the
 // batch computes lane 0's transition beside its warp and writes nothing.
+// Under kScratchInPlanes the polytope rows take the D, L and U planes, which
+// the solve first writes after them, and the branch penalties the TH .. FQ
+// planes, spent once V and I are in bus order.
 template <class C>
 __global__ void __launch_bounds__(C::kThreadsMax, kTreeThreadsPerSM / C::kThreadsMax)
 step_fused_kernel_tree(Step S, TreeStep tr, const float* __restrict__ in, float* __restrict__ out, int B,
@@ -481,16 +516,17 @@ step_fused_kernel_tree(Step S, TreeStep tr, const float* __restrict__ in, float*
   if (!__any_sync(treecore::kFull, valid)) return;  // a whole warp past the batch
   const treecore::Team<T> tm{(int)(threadIdx.x % T)};
   const treecore::Lane ln{smem + treecore::table_words(NS, sc.maxC, sc.n_levels) +
-                              slot * treecore::lane_floats(NS, T, tree_tail_floats(S.dim)),
+                              slot * treecore::lane_floats(NS, T, tree_tail_floats<C>(S.dim)),
                           NS};
   float* dev_p = ln.r + treecore::N_PLANES * NS;
   float* dev_q = dev_p + d;
   float* p_pot = dev_q + d;
-  float* scratch = p_pot + S.dim[D_NGEN];
+  float* poly = kScratchInPlanes<C> ? &ln.at(treecore::D00, 0) : p_pot + S.dim[D_NGEN];
+  float* br_term = kScratchInPlanes<C> ? &ln.at(treecore::TH, 0) : poly;
   const LaneIO io{in, out, B, valid ? b : 0, valid};
   const Rows rw = rows(S.dim);
 
-  const float zero = set_devices<T>(tm, S, io, dev_p, dev_q, p_pot, scratch);
+  const float zero = set_devices<T>(tm, S, io, dev_p, dev_q, p_pot, poly);
   // 5. Bus aggregation into the schedule's slots (a pad slot injects 0).
   for (int s = tm.t; s < NS; s += T) {
     const int bm1 = (int)__ldg(tr.slot_bus + s);
@@ -533,7 +569,8 @@ step_fused_kernel_tree(Step S, TreeStep tr, const float* __restrict__ in, float*
     ii[0] = ai;
   }
   tm.sync();
-  finish<T>(tm, S, io, vr, vi, ir, ii, dev_p, dev_q, p_pot, scratch, diff, it);
+  finish<T>(tm, S, io, vr, vi, ir, ii, dev_p, dev_q, p_pot, br_term, diff, it);
+  if (valid) count(S, tm.t, it, diff, x_tol);
 }
 
 template <class C>
@@ -547,7 +584,7 @@ cudaError_t geometry(const int* dims, int chord_iters, bool occupancy, nrcore::G
 template <class C>
 cudaError_t tree_geometry(const int* dims, const int* tdims, bool occupancy, nrcore::Geometry* g) {
   const int NS = tdims[TD_S];
-  if (!nrcore::plan<C>(treecore::lane_floats(NS, C::T, tree_tail_floats(dims)),
+  if (!nrcore::plan<C>(treecore::lane_floats(NS, C::T, tree_tail_floats<C>(dims)),
                        treecore::table_words(NS, tdims[TD_MAXC], tdims[TD_NLEVELS]), g))
     return cudaErrorInvalidValue;
   if (g->threads % 32 != 0) return cudaErrorInvalidValue;  // warps are whole: every vote names all 32 threads
@@ -559,22 +596,41 @@ bool valid_dims(const int* dims) {
   return n >= 2 && 2 * (n - 1) <= nrcore::kNNMax && dims[D_D] >= 1 && dims[D_ROWS] >= 1;
 }
 
-// A schedule holds a slot for every non-slack bus, so S >= n - 1 and the
-// bus-order V and I (4 n floats) fit the 12 S floats of the spent planes.
+// The tree form holds no dense system, so no cap on the unknowns: a
+// schedule holds a slot for every non-slack bus, so S >= n - 1 and the
+// bus-order V and I (4 n floats) fit the 12 S floats of the spent D, L and
+// U planes.  Past kLargeSlots the polytope rows fit those 12 S floats too
+// and the branch penalties the 10 S floats of TH .. FQ.  Whether a block
+// holds a lane is the geometry's to say (nrcore::plan).
 bool valid_tree(const int* dims, const int* tdims) {
-  return valid_dims(dims) && tdims[TD_MAXC] >= 1 && tdims[TD_NLEVELS] >= 1 && tdims[TD_S] >= dims[D_N] - 1;
+  const int n = dims[D_N], NS = tdims[TD_S];
+  const bool ok = n >= 2 && dims[D_D] >= 1 && dims[D_ROWS] >= 1 && tdims[TD_MAXC] >= 1 && tdims[TD_NLEVELS] >= 1 &&
+                  NS >= n - 1;
+  if (NS <= kLargeSlots) return ok;
+  return ok && 2 * (dims[D_NGEN] + dims[D_NDES]) * dims[D_ROWS] <= 12 * NS && dims[D_L] <= 10 * NS;
 }
 
 bool small_system(int n) { return 2 * (n - 1) <= nrcore::SmallClass::NN; }
 
-Step make_step(const void* const* ftab, const void* const* itab, const int* dims, float delta_t, float dt_lamb) {
+Step make_step(const void* const* ftab, const void* const* itab, const int* dims, float delta_t, float dt_lamb,
+               unsigned long long* counts) {
   Step S;
   for (int k = 0; k < N_FTAB; ++k) S.f[k] = static_cast<const float*>(ftab[k]);
   for (int k = 0; k < N_ITAB; ++k) S.i[k] = static_cast<const int*>(itab[k]);
   for (int k = 0; k < N_DIM; ++k) S.dim[k] = dims[k];
   S.delta_t = delta_t;
   S.dt_lamb = dt_lamb;
+  S.counts = counts;
   return S;
+}
+
+template <class C>
+cudaError_t tree_launch(const Step& S, const TreeStep& tr, const int* tdims, const float* in, float* out, int B,
+                        float x_tol, int max_iter, cudaStream_t s) {
+  nrcore::Geometry g;
+  const cudaError_t err = tree_geometry<C>(S.dim, tdims, false, &g);
+  if (err != cudaSuccess) return err;
+  return nrcore::launch(step_fused_kernel_tree<C>, g, B, s, S, tr, in, out, B, x_tol, max_iter);
 }
 
 int write_geometry(const nrcore::Geometry& g, int* out) {
@@ -613,21 +669,24 @@ extern "C" int step_fused_geometry(const int* dims, int chord_iters, int* out) {
 extern "C" int step_fused_tree_geometry(const int* dims, const int* tdims, int* out) {
   if (!valid_tree(dims, tdims)) return static_cast<int>(cudaErrorInvalidValue);
   nrcore::Geometry g;
-  const cudaError_t err = tdims[TD_S] <= treecore::kSmallSlots
-                              ? tree_geometry<treecore::SmallClass>(dims, tdims, true, &g)
-                              : tree_geometry<treecore::LargeClass>(dims, tdims, true, &g);
+  const int NS = tdims[TD_S];
+  const cudaError_t err = NS <= treecore::kSmallSlots ? tree_geometry<treecore::SmallClass>(dims, tdims, true, &g)
+                          : NS <= kLargeSlots         ? tree_geometry<treecore::LargeClass>(dims, tdims, true, &g)
+                                                      : tree_geometry<WideClass>(dims, tdims, true, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   return write_geometry(g, out);
 }
 
 // ftab: host array of N_FTAB device pointers (float tables); itab: host array
 // of N_ITAB device pointers (int32 tables); dims: host array of N_DIM ints.
-// lanes_in: [K_in, B]; lanes_out: [K_out, B].  `stream` is a cudaStream_t.
+// lanes_in: [K_in, B]; lanes_out: [K_out, B]; counts: [2], to which the
+// launch adds the lanes' iterations and the lanes that ended unconverged.
+// `stream` is a cudaStream_t.
 extern "C" int step_fused_f32(const void* const* ftab, const void* const* itab, const int* dims, float delta_t,
                               float dt_lamb, const float* lanes_in, float* lanes_out, int B, float x_tol,
-                              int max_iter, int chord_iters, int pivot, void* stream) {
+                              int max_iter, int chord_iters, int pivot, unsigned long long* counts, void* stream) {
   if (!valid_dims(dims) || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Step S = make_step(ftab, itab, dims, delta_t, dt_lamb);
+  const Step S = make_step(ftab, itab, dims, delta_t, dt_lamb, counts);
   const auto s = static_cast<cudaStream_t>(stream);
   nrcore::Geometry g;
   cudaError_t err;
@@ -652,26 +711,19 @@ extern "C" int step_fused_f32(const void* const* ftab, const void* const* itab, 
 extern "C" int step_fused_tree_f32(const void* const* ftab, const void* const* itab, const int* dims,
                                    const void* const* ttab, const int* tdims, float delta_t, float dt_lamb,
                                    const float* lanes_in, float* lanes_out, int B, float x_tol, int max_iter,
-                                   void* stream) {
+                                   unsigned long long* counts, void* stream) {
   if (!valid_tree(dims, tdims) || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Step S = make_step(ftab, itab, dims, delta_t, dt_lamb);
+  const Step S = make_step(ftab, itab, dims, delta_t, dt_lamb, counts);
   const TreeStep tr{treecore::Tables{static_cast<const float*>(ttab[T_YCOLS]), static_cast<const int*>(ttab[T_PAR]),
                                      static_cast<const int*>(ttab[T_CH]), static_cast<const int*>(ttab[T_LEVELS]),
                                      tdims[TD_S], tdims[TD_MAXC], tdims[TD_NLEVELS]},
                     static_cast<const long long*>(ttab[T_SLOT_BUS]), static_cast<const long long*>(ttab[T_BUS_SLOT])};
   const auto s = static_cast<cudaStream_t>(stream);
-  nrcore::Geometry g;
-  cudaError_t err;
-  if (tdims[TD_S] <= treecore::kSmallSlots) {
-    err = tree_geometry<treecore::SmallClass>(dims, tdims, false, &g);
-    if (err == cudaSuccess)
-      err = nrcore::launch(step_fused_kernel_tree<treecore::SmallClass>, g, B, s, S, tr, lanes_in, lanes_out, B,
-                           x_tol, max_iter);
-  } else {
-    err = tree_geometry<treecore::LargeClass>(dims, tdims, false, &g);
-    if (err == cudaSuccess)
-      err = nrcore::launch(step_fused_kernel_tree<treecore::LargeClass>, g, B, s, S, tr, lanes_in, lanes_out, B,
-                           x_tol, max_iter);
-  }
+  const int NS = tdims[TD_S];
+  const cudaError_t err =
+      NS <= treecore::kSmallSlots ? tree_launch<treecore::SmallClass>(S, tr, tdims, lanes_in, lanes_out, B, x_tol,
+                                                                      max_iter, s)
+      : NS <= kLargeSlots ? tree_launch<treecore::LargeClass>(S, tr, tdims, lanes_in, lanes_out, B, x_tol, max_iter, s)
+                          : tree_launch<WideClass>(S, tr, tdims, lanes_in, lanes_out, B, x_tol, max_iter, s);
   return static_cast<int>(err);
 }

@@ -15,52 +15,54 @@ from __future__ import annotations
 
 import torch
 
-from ..core.transition import DENSE_KERNEL_METHODS, dense_kernels_refusal
-
-# Buses of the network; its 280 unknowns exceed what the dense kernels take.
-N_BUS = 141
+from ..core.transition import resolve_solver_path
 
 
 def pf_max_iter_for(pf_method: str) -> int:
-    """The JAX package's calibrated NR budgets at this size: 0 for the
-    chord-only hybrids, 18 for the tree solves (rollout-measured p100 = 15
-    including termination-adjacent lanes) and 6 for dense NR."""
+    """The calibrated NR budgets at this size: 0 for the chord-only hybrids,
+    18 for the tree solves (the JAX package's rollout-measured p100 = 15
+    including termination-adjacent lanes), ``"fused"`` included, whose
+    solve is the tree solve here, and 6 for dense NR."""
     if pf_method in ("hybrid", "xla_hybrid"):
         return 0
-    if pf_method in ("tree", "tree_xla"):
+    if pf_method in ("tree", "tree_xla", "fused"):
         return 18
     return 6
 
 
 def make_core(
     dtype=torch.float32, device="cuda", pf_max_iter=None, pf_method="tree", chord_iters=28, x_tol=None,
-    nr_pivot=False, warm_start=False,
+    nr_pivot=False, warm_start=False, network=None,
 ):
     """Build the feeder141 :class:`~gym_anm_tpu_torch.core.env_core.EnvCore`
     computing on ``device`` (the card unless the caller passes ``"cpu"``) in
     ``dtype``.
 
     ``pf_method``: ``"tree"`` (the default) is the exact per-lane NR of the
-    tree-NR kernel and ``"tree_xla"`` its plain twin; ``"hybrid"`` and
-    ``"xla_hybrid"`` are chord-only (``chord_iters`` iterations of one
+    tree-NR kernel and ``"tree_xla"`` its plain twin; ``"fused"`` is the
+    whole transition in one launch of the fused-transition kernel, whose
+    solve is here the tree-NR kernel's (its tree form, without pivoting);
+    ``"hybrid"`` and ``"xla_hybrid"`` are chord-only (``chord_iters`` iterations of one
     ``[280, 280] x [280, B]`` product each, lanes the chord cannot converge
     flagged unconverged: an ablation); ``"scan"`` and ``"while"`` are dense
-    per-lane NR for verification.  All but ``"tree"`` run plain PyTorch.
+    per-lane NR for verification.  All but ``"tree"`` and ``"fused"`` run
+    plain PyTorch; ``"pallas"`` and ``"fused_hybrid"`` (the dense kernels)
+    are refused.
     ``pf_max_iter=None`` takes :func:`pf_max_iter_for`.  ``x_tol=None``
     takes 3e-5 in float32 and 1e-5 in float64 for every method: the float32
     mismatch of this network plateaus just above the reference's 1e-5 on
     full-load lanes whatever the solver (3e-5 is 3 kVA on the 100 MVA base).
     ``warm_start`` warm-starts each step's solve from the previous step's
-    voltages (off by default).
+    voltages (off by default).  ``network`` replaces the 141-bus network
+    (:func:`~gym_anm_tpu_torch.envs.feeder_networks.make_multi_feeder_network`)
+    with another network dict under the same dynamics and budgets.
     """
     from .feeder33 import make_core as feeder_make_core
     from .feeder_networks import make_multi_feeder_network
 
-    if pf_method in DENSE_KERNEL_METHODS:
-        raise dense_kernels_refusal(pf_method, N_BUS)
     if x_tol is None:
         x_tol = 1e-5 if dtype == torch.float64 else 3e-5
-    return feeder_make_core(
+    core = feeder_make_core(
         dtype=dtype,
         device=device,
         pf_max_iter=pf_max_iter_for(pf_method) if pf_max_iter is None else pf_max_iter,
@@ -68,9 +70,12 @@ def make_core(
         chord_iters=chord_iters,
         nr_pivot=nr_pivot,
         warm_start=warm_start,
-        network=make_multi_feeder_network(),
+        network=make_multi_feeder_network() if network is None else network,
         x_tol=x_tol,
     )
+    # Refuse here what the transition would refuse at its first step.
+    resolve_solver_path(core.grid, pf_method, nr_pivot)
+    return core
 
 
 def __getattr__(name):

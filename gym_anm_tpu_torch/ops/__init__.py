@@ -7,8 +7,9 @@ import importlib
 # ``KERNEL_LAUNCHES``, which a CUDA graph's replay has to add to itself.
 KERNEL_MODULES = ("nr_cuda", "step_cuda", "tree_cuda")
 # The host counters a kernel module may keep, each of which a replay adds to
-# itself: its launches, (the tree-NR kernel's) its lane-solves and (the
-# fused-transition kernel's) its launches in the tree form.
+# itself: its launches, (the tree-NR and fused-transition kernels') its
+# lane-solves and (the fused-transition kernel's) its launches in the tree
+# form.
 HOST_COUNTERS = ("KERNEL_LAUNCHES", "LANE_SOLVES", "TREE_LAUNCHES")
 
 

@@ -131,6 +131,7 @@ def load_library() -> ctypes.CDLL:
                 cf, cf,  # delta_t, delta_t * lamb
                 vp, vp, ci,  # lanes_in, lanes_out, B
                 cf, ci, ci, ci,  # x_tol, max_iter, chord_iters, pivot
+                vp,  # counts [2]
                 vp,  # stream
             ]
             lib.step_fused_f32.restype = ci
@@ -142,6 +143,7 @@ def load_library() -> ctypes.CDLL:
                 cf, cf,  # delta_t, delta_t * lamb
                 vp, vp, ci,  # lanes_in, lanes_out, B
                 cf, ci,  # x_tol, max_iter
+                vp,  # counts [2]
                 vp,  # stream
             ]
             lib.step_fused_tree_f32.restype = ci

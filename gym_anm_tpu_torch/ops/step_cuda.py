@@ -17,7 +17,9 @@ prefix or pivoting, the tree-NR kernel's leaf-to-root block elimination on
 the grid's slots (:func:`~gym_anm_tpu_torch.ops.tree_cuda.tree_newton_plain`
 or its kernel form, ``csrc/tree_core.cuh``); otherwise the dense NR
 (:func:`~gym_anm_tpu_torch.ops.nr_cuda.nr_core_plain` or its kernel form).
-Both are exact Newton steps on the same equations from the flat start.
+Both are exact Newton steps on the same equations from the flat start.  The
+dense form takes at most 64 unknowns; the tree form takes a radial grid of
+any size whose lane a block's shared memory holds.
 
 Both versions work on packed batch-last buffers: the lane inputs ``[K_in,
 B]`` (``soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des``)
@@ -45,14 +47,25 @@ import numpy as np
 import torch
 
 from ..core.grid import POLY_ROW_P_CAP, POLY_ROW_P_FLOOR
-from .nr_cuda import nr_core_plain, nr_dense_flops_per_lane, nr_flops_per_lane
+from .nr_cuda import NN_MAX, nr_core_plain, nr_dense_flops_per_lane, nr_flops_per_lane
 from .power_flow import flat_start_jacobian_inv_np
-from .tree_cuda import DeviceSchedule, tree_newton_plain, tree_nr_flops_per_lane
+from .tree_cuda import DeviceSchedule, device_counters, sum_counters, tree_newton_plain, tree_nr_flops_per_lane
 
 # Launches of the CUDA kernel in this process (one per successful launch).
 KERNEL_LAUNCHES = 0
 # Those of them that solved in the tree form (:func:`tree_form`).
 TREE_LAUNCHES = 0
+# Lane-solves of the fused transition in this process, the kernel's and the
+# plain twin's (B a call).  Like KERNEL_LAUNCHES, a host count that a CUDA
+# graph's replay adds its captured solves to.
+LANE_SOLVES = 0
+# The NR iterations of those lane-solves (chord steps included), on the
+# devices that solved them: per device an int64 [2], the iterations summed
+# over lanes and the lanes that ended unconverged.  The kernel adds to them
+# in its epilogue, so a replayed CUDA graph counts without a host read; the
+# plain twin adds the same in PyTorch.  They are not the tree-NR kernel's
+# (``tree_cuda.iteration_counts``).
+_ITERATION_COUNTS: dict = {}
 
 # The kernel's table and size slots, in the order of the enums of
 # csrc/step_fused.cu.
@@ -65,6 +78,27 @@ DIMS = ("n", "d", "L", "n_load", "n_gen", "n_des", "n_rer", "slack", "rows", "ca
 # sizes, in the order of the enums of csrc/step_fused.cu.
 TREE_TABLES = ("ycols", "par", "children", "levels", "slot_sel", "busm1_slot")
 TREE_DIMS = ("S", "maxC", "n_levels")
+
+
+def iteration_counts(device) -> torch.Tensor:
+    """``device``'s iteration counters (see ``_ITERATION_COUNTS``), made on
+    first use.  Building :class:`StepTables` makes them, before any CUDA
+    graph that runs the transition on the device can be captured."""
+    return device_counters(_ITERATION_COUNTS, device)
+
+
+class IterationCounts(NamedTuple):
+    """The fused transition's counters, summed over devices.  Its second
+    slot is not the tree-NR solve's ``budget_hits``: a dense solve's chord
+    prefix and a NaN lane end unconverged before the NR budget."""
+    iterations: int
+    unconverged: int  # lanes that ended unconverged, NaN lanes included
+
+
+def read_iteration_counts() -> IterationCounts:
+    """The counters of every lane-solve of the fused transition in this
+    process, on every device (a host read of each device's counters)."""
+    return IterationCounts(*sum_counters(_ITERATION_COUNTS))
 
 
 class FusedStepOutputs(NamedTuple):
@@ -208,6 +242,7 @@ class StepTables:
             (ctypes.c_int * len(DIMS))(*(int(dims[k]) for k in DIMS)),
         )
         tree = DeviceSchedule.from_spec(spec, device, dtype)
+        iteration_counts(device)
         tree_args = () if tree is None else (
             (ctypes.c_void_p * len(TREE_TABLES))(*(getattr(tree, k).data_ptr() for k in TREE_TABLES)),
             (ctypes.c_int * len(TREE_DIMS))(tree.sched.S, tree.sched.maxC, tree.levels.shape[0]),
@@ -485,10 +520,20 @@ def fused_transition_plain(st: StepTables, lanes_in, x_tol=1e-5, max_iter=10, ch
     rows = [torch.stack(dev_p), torch.stack(dev_q), soc_new, p_pot, vr, vi, ir, ii, torch.stack(bus_p),
             torch.stack(bus_q), if_re, if_im, it_re, it_im, p_f, q_f, p_t, q_t, s_max,
             e_loss[None], penalty[None], diff[None], it.to(lanes_in.dtype)[None]]
+    _count_plain(it, diff, x_tol)
     return torch.cat(rows)
 
 
-def _check_kernel_args(st: StepTables, lanes_in):
+def _count_plain(it, diff, x_tol):
+    """The kernel's epilogue count, in PyTorch, for the plain twin."""
+    global LANE_SOLVES
+    counts = iteration_counts(it.device)
+    counts[0] += it.sum()
+    counts[1] += (~(diff <= x_tol)).sum()
+    LANE_SOLVES += it.shape[0]
+
+
+def _check_kernel_args(st: StepTables, lanes_in, tree: bool):
     if not lanes_in.is_cuda:
         raise ValueError("lanes_in must be a CUDA tensor for the fused-transition kernel")
     if lanes_in.dtype != torch.float32:
@@ -499,34 +544,37 @@ def _check_kernel_args(st: StepTables, lanes_in):
         raise ValueError("lanes_in must be [K_in=%d, B>0]; got %s" % (sum(st.in_rows), tuple(lanes_in.shape)))
     if st.dtype != torch.float32 or st.device != lanes_in.device:
         raise ValueError("the step tables must be float32 on the inputs' device")
-    if 2 * (st.dims["n"] - 1) > 64:
-        raise ValueError("the fused-transition kernel solves systems of up to 64 unknowns")
+    if not tree and 2 * (st.dims["n"] - 1) > NN_MAX:
+        raise ValueError("the fused-transition kernel's dense form solves systems of up to %d unknowns" % NN_MAX)
 
 
 def fused_transition_cuda(st: StepTables, lanes_in, x_tol=1e-5, max_iter=10, chord_iters=0, pivot=False):
     """Launch the CUDA fused-transition kernel (``csrc/step_fused.cu``) on a
     packed float32 CUDA buffer ``lanes_in [K_in, B]``, in the form
     :func:`tree_form` chooses; returns ``[K_out, B]``.  Raises on anything
-    else and when the launch fails."""
-    global KERNEL_LAUNCHES, TREE_LAUNCHES
+    else and when the launch fails.  The launch adds the lanes' iterations
+    to the device's :func:`iteration_counts` itself."""
+    global KERNEL_LAUNCHES, TREE_LAUNCHES, LANE_SOLVES
     from ._build import load_library
 
-    _check_kernel_args(st, lanes_in)
+    tree = tree_form(st, chord_iters, pivot)
+    _check_kernel_args(st, lanes_in, tree)
     lib = load_library()
     B = lanes_in.shape[1]
     out = torch.empty((sum(st.out_rows), B), dtype=torch.float32, device=lanes_in.device)
-    tree = tree_form(st, chord_iters, pivot)
     common = (ctypes.c_float(st.delta_t), ctypes.c_float(st.dt_lamb), lanes_in.data_ptr(), out.data_ptr(), B,
               ctypes.c_float(x_tol), int(max_iter))
+    counts = iteration_counts(lanes_in.device).data_ptr()
     stream = torch.cuda.current_stream(lanes_in.device).cuda_stream
     if tree:
-        rc = lib.step_fused_tree_f32(*st.c_args, *st.tree_args, *common, stream)
+        rc = lib.step_fused_tree_f32(*st.c_args, *st.tree_args, *common, counts, stream)
     else:
-        rc = lib.step_fused_f32(*st.c_args, *common, int(chord_iters), int(bool(pivot)), stream)
+        rc = lib.step_fused_f32(*st.c_args, *common, int(chord_iters), int(bool(pivot)), counts, stream)
     if rc != 0:
         raise RuntimeError("fused-transition kernel launch failed: CUDA error %d" % rc)
     KERNEL_LAUNCHES += 1
     TREE_LAUNCHES += int(tree)
+    LANE_SOLVES += B
     return out
 
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,29 +67,47 @@ LANE_SOLVES = 0
 _ITERATION_COUNTS: dict = {}
 
 
+def device_counters(store: dict, device) -> torch.Tensor:
+    """The int64 [2] counters that ``store`` keeps for ``device``, made on
+    first use (outside inference mode, so that any step may add to them)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counts = store.get(device)
+    if counts is None:
+        with torch.inference_mode(False):
+            counts = store[device] = torch.zeros((2,), dtype=torch.int64, device=device)
+    return counts
+
+
+def sum_counters(store: dict) -> tuple:
+    """The two counters of ``store`` summed over its devices (a host read of
+    each device's)."""
+    a = b = 0
+    for counts in store.values():
+        n, m = counts.tolist()
+        a, b = a + n, b + m
+    return a, b
+
+
 def iteration_counts(device) -> torch.Tensor:
     """``device``'s iteration counters (see ``_ITERATION_COUNTS``), made on
     first use.  Building a :class:`DeviceSchedule` makes them, before any
     CUDA graph that solves on the device can be captured (a capture would
     record their zeroing into the graph)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    counts = _ITERATION_COUNTS.get(device)
-    if counts is None:
-        with torch.inference_mode(False):
-            counts = _ITERATION_COUNTS[device] = torch.zeros((2,), dtype=torch.int64, device=device)
-    return counts
+    return device_counters(_ITERATION_COUNTS, device)
 
 
-def read_iteration_counts() -> tuple:
-    """``(iterations, budget_hits)`` of every lane-solve in this process, on
-    every device (a host read of each device's counters)."""
-    iterations = budget_hits = 0
-    for counts in _ITERATION_COUNTS.values():
-        n, hits = counts.tolist()
-        iterations, budget_hits = iterations + n, budget_hits + hits
-    return iterations, budget_hits
+class IterationCounts(NamedTuple):
+    """The tree-NR solve's counters, summed over devices."""
+    iterations: int
+    budget_hits: int  # lanes that ended at the NR budget unconverged
+
+
+def read_iteration_counts() -> IterationCounts:
+    """The counters of every lane-solve in this process, on every device (a
+    host read of each device's counters)."""
+    return IterationCounts(*sum_counters(_ITERATION_COUNTS))
 
 
 def _count_plain(n_iter, diff, x_tol, max_iter):

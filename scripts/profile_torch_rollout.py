@@ -122,7 +122,7 @@ def main() -> int:
     core = check.task_make_core(args.env)(
         dtype=torch.float32, device="cuda", pf_method=args.pf, warm_start=args.warm_start
     )
-    path, _ = resolve_solver_path(core.grid, args.pf)
+    path, _ = resolve_solver_path(core.grid, args.pf, core.nr_pivot)
     counter, kname = {
         "tree_kernel": (tree_cuda, "tree_nr"),
         "nr_kernel": (nr_cuda, "nr_dense"),

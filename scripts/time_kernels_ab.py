@@ -8,16 +8,17 @@ another commit unpacked with ``git archive`` under ``build/checkout/``
 process imports that checkout's ``gym_anm_tpu_torch``, builds its kernels
 and times them at B=4096 on the cases of this checkout's ``chip_smoke.py``
 (K1 on its three grids and K2 on its four settings, each cold and, where
-the checkout's kernel has a warm form, warm; K3 on both tasks for
-``fused`` and ``fused_hybrid``), through the public wrappers, with
+the checkout's kernel has a warm form, warm; K3 on its tasks and methods,
+``chip_smoke.STEP_CASES``: a case the checkout refuses prints its row with
+``refused``), through the public wrappers, with
 ``chip_smoke.event_ms``: the replay of a CUDA graph of 20 launches (``ms``,
 as ``chip_smoke.py`` reports) and 20 eager calls (``eager_ms``, the host's
 issue time included), each per launch.  Give the roots as A B B A to see
 the drift between turns.  Prints the card's name and power limit, then one
 JSON line per (root, case); ``out_sha`` hashes the case's outputs, so two
 roots whose kernels agree bit for bit show the same value; ``k1_counts``
-(where the checkout has K1's iteration counters) is what the case's first
-launch added to them.
+and ``k3_counts`` (where the checkout has K1's or K3's iteration counters)
+are what the case's first launch added to them.
 """
 
 from __future__ import annotations
@@ -61,14 +62,18 @@ def cases(cs):
         kw.update({} if warm is None else {"init": warm})
         yield {"kernel": "nr_dense", "grid": name, "chord_iters": chord, "pivot": pivot, "warm": warm is not None}, (
             lambda g=g, p=p, q=q, kw=kw: nr_cuda.solve_pfe_nr_cuda(g.Y_re, g.Y_im, g.J0inv, p, q, **kw))
-    for env in cs.STEP_ENVS:
-        for method in ("fused", "fused_hybrid"):
+    for env, method in cs.STEP_CASES:
+        row = {"kernel": "step_fused", "env": env, "pf_method": method}
+        try:
             core = check.task_make_core(env)(dtype=torch.float32, device="cuda", pf_method=method)
-            chord = core.chord_iters if method == "fused_hybrid" else 0
-            kw = dict(x_tol=core.x_tol, max_iter=core.max_iter, chord_iters=chord, pivot=core.nr_pivot)
-            yield {"kernel": "step_fused", "env": env, "pf_method": method}, (
-                lambda st=core.grid.step, lanes=cs.step_lanes(core), kw=kw: (
-                    step_cuda.fused_transition_cuda(st, lanes, **kw),))
+        except ValueError as e:
+            yield dict(row, refused=str(e)), None
+            continue
+        chord = core.chord_iters if method == "fused_hybrid" else 0
+        kw = dict(x_tol=core.x_tol, max_iter=core.max_iter, chord_iters=chord, pivot=core.nr_pivot)
+        yield row, (
+            lambda st=core.grid.step, lanes=cs.step_lanes(core), kw=kw: (
+                step_cuda.fused_transition_cuda(st, lanes, **kw),))
 
 
 def child(root: str) -> int:
@@ -76,21 +81,25 @@ def child(root: str) -> int:
     sys.path.insert(0, root)
     cs = _load_smoke()
     import gym_anm_tpu_torch
-    from gym_anm_tpu_torch.ops import _build, tree_cuda
+    from gym_anm_tpu_torch.ops import _build, step_cuda, tree_cuda
 
     if not os.path.abspath(gym_anm_tpu_torch.__file__).startswith(root + os.sep):
         raise RuntimeError("imported %s, not the package under %s" % (gym_anm_tpu_torch.__file__, root))
     t0 = time.perf_counter()
     _build.load_library()
     print(json.dumps({"root": os.path.relpath(root, REPO), "build_s": time.perf_counter() - t0}), flush=True)
-    counts = getattr(tree_cuda, "iteration_counts", None)
+    counters = {name: getattr(m, "iteration_counts", None) for name, m in (("k1", tree_cuda), ("k3", step_cuda))}
+    counters = {name: c for name, c in counters.items() if c is not None}
     for row, run in cases(cs):
+        if run is None:
+            print(json.dumps(dict(row, root=os.path.relpath(root, REPO))), flush=True)
+            continue
         h = hashlib.sha256()
-        c0 = None if counts is None else counts("cuda").tolist()
+        c0 = {name: c("cuda").tolist() for name, c in counters.items()}
         for t in run():
             h.update(t.cpu().numpy().tobytes())
-        if c0 is not None:  # what one launch added to K1's iteration counters
-            row["k1_counts"] = [b - a for a, b in zip(c0, counts("cuda").tolist())]
+        for name, c in counters.items():  # what one launch added to the iteration counters
+            row[name + "_counts"] = [b - a for a, b in zip(c0[name], c("cuda").tolist())]
         row.update({
             "root": os.path.relpath(root, REPO), "out_sha": h.hexdigest()[:16],
             "ms": cs.event_ms(run, 20, 5, graph=True), "eager_ms": cs.event_ms(run, 20, 5),

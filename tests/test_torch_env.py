@@ -279,12 +279,18 @@ def test_feeder141_hooks_and_refusals():
     np.testing.assert_array_equal(core.action_low, j["action_low"])
     f64 = f141_make_core(dtype=torch.float64, device="cpu", warm_start=True)
     assert f64.x_tol == float(j["f64_x_tol"]) == 1e-5 and f64.warm_start
+    # The JAX package refuses the three dense-kernel methods here; the port
+    # refuses two of them, and "fused" only with pivoting: without it, its
+    # whole-transition kernel solves this radial grid in its tree form.
     for method in ("pallas", "fused", "fused_hybrid"):
+        kw = dict(nr_pivot=True) if method == "fused" else {}
         with pytest.raises(ValueError, match="unsupported at 141 buses"):
-            f141_make_core(device="cpu", pf_method=method)
+            f141_make_core(device="cpu", pf_method=method, **kw)
         assert "unsupported at 141 buses" in str(j["refusal/" + method])
-    for method in ("hybrid", "xla_hybrid", "scan", "while", "tree_xla"):
+    for method in ("hybrid", "xla_hybrid", "scan", "while", "tree_xla", "fused"):
         assert f141_make_core(device="cpu", pf_method=method).pf_method == method
+    fused = f141_make_core(device="cpu", pf_method="fused")
+    assert (fused.max_iter, fused.x_tol) == (18, 3e-5) and fused.grid.step.tree is fused.grid.tree
     g = torch.Generator().manual_seed(0)
     es, out = core.reset(g, 16)
     assert not bool(out.failed.any()) and out.state_vec.shape == (16, core.state_n)

@@ -1,10 +1,13 @@
 """Every solver path of the port at every grid size.
 
 feeder141's ``make_core`` builds each method the JAX package builds there,
-with its budgets and ``x_tol``, and refuses the dense kernels' methods;
+with its budgets and ``x_tol``, and refuses the dense kernels' methods (and
+``fused`` with pivoting); it builds ``fused`` itself, the whole-transition
+kernel's tree form, on its own network or one it is given;
 ``resolve_solver_path`` routes ``tree_xla`` to the tree kernel's plain twin,
-refuses the dense kernels' methods on grids beyond 64 unknowns and runs
-``hybrid`` there chord-only on the plain solver; on the CPU ``tree_xla`` and ``tree`` are the same bits.  The plain
+refuses the dense kernels' methods on grids beyond 64 unknowns, but for
+``fused`` on a radial grid without pivoting, and runs ``hybrid`` there
+chord-only on the plain solver; on the CPU ``tree_xla`` and ``tree`` are the same bits.  The plain
 solver's chord step (one ``J0inv @ F`` product) is held against the dense
 kernel twin's column loop at feeder141; at ANM6 and feeder33 it is held
 against JAX by ``tests/test_torch_power_flow.py``.  The replays of the
@@ -45,8 +48,28 @@ def test_feeder141_make_core_takes_jax_budgets(method):
 
 @pytest.mark.parametrize("method", ["pallas", "fused", "fused_hybrid"])
 def test_feeder141_make_core_refuses_the_dense_kernels(method):
+    # "fused" takes the tree form at this size, which has no pivoting: with
+    # it, the transition would need the dense form.
+    kw = dict(nr_pivot=True) if method == "fused" else {}
     with pytest.raises(ValueError, match="64 unknowns"):
-        make_core(device="cpu", pf_method=method)
+        make_core(device="cpu", pf_method=method, **kw)
+
+
+def test_feeder141_make_core_takes_a_network():
+    """``network=`` (as the benchmark passes it) builds the core of the
+    network given; the default network gives the default core, and
+    ``fused`` takes the tree solves' budget of 18 and their ``x_tol``."""
+    for dtype, x_tol in ((torch.float32, 3e-5), (torch.float64, 1e-5)):
+        mine = make_core(dtype=dtype, device="cpu", pf_method="fused", network=make_multi_feeder_network())
+        default = make_core(dtype=dtype, device="cpu", pf_method="fused")
+        assert (mine.pf_method, mine.max_iter, mine.x_tol) == (default.pf_method, default.max_iter, default.x_tol)
+        assert (mine.max_iter, mine.x_tol) == (18, x_tol)
+        assert resolve_solver_path(mine.grid, "fused", False) == ("fused_kernel", "fused")
+        for f in dataclasses.fields(mine.spec):
+            a, b = getattr(mine.spec, f.name), getattr(default.spec, f.name)
+            assert np.array_equal(np.asarray(a), np.asarray(b)), f.name
+    other = make_core(device="cpu", pf_method="fused", network=make_multi_feeder_network(seed=1))
+    assert other.spec.n_bus == 141 and not np.array_equal(np.asarray(other.spec.br_rate), np.asarray(mine.spec.br_rate))
 
 
 def _grid(name):
@@ -65,7 +88,7 @@ ROUTES = {
     },
     "large": {
         "tree": ("tree_kernel", "tree"), "tree_xla": ("tree_plain", "tree_xla"),
-        "pallas": None, "hybrid": ("torch", "hybrid"), "fused": None, "fused_hybrid": None,
+        "pallas": None, "hybrid": ("torch", "hybrid"), "fused": ("fused_kernel", "fused"), "fused_hybrid": None,
         "scan": ("torch", "scan"), "while": ("torch", "while"), "xla_hybrid": ("torch", "xla_hybrid"),
     },
 }
@@ -79,14 +102,21 @@ def test_resolve_solver_path_routes(name):
     for method, want in routes.items():
         if want is None:
             with pytest.raises(ValueError, match="64 unknowns"):
-                resolve_solver_path(g, method)
+                resolve_solver_path(g, method, False)
             with pytest.raises(ValueError, match="64 unknowns"):
-                resolve_solver_path(dataclasses.replace(g, step=None), method)
+                resolve_solver_path(dataclasses.replace(g, step=None), method, False)
         else:
-            assert resolve_solver_path(g, method) == want, method
+            assert resolve_solver_path(g, method, False) == want, method
     for method in ("tree", "tree_xla"):
         with pytest.raises(ValueError, match="radial"):
-            resolve_solver_path(dataclasses.replace(g, tree=None), method)
+            resolve_solver_path(dataclasses.replace(g, tree=None), method, False)
+    if routes is ROUTES["large"]:
+        # "fused" past 64 unknowns: the tree form only, on a radial grid
+        # with step tables and without pivoting.
+        meshed = dataclasses.replace(g, step=dataclasses.replace(g.step, tree=None))
+        for grid, pivot in ((dataclasses.replace(g, step=None), False), (meshed, False), (g, True)):
+            with pytest.raises(ValueError, match="64 unknowns"):
+                resolve_solver_path(grid, "fused", pivot)
 
 
 def test_chord_matmul_matches_column_loop_feeder141_f64():

@@ -3,8 +3,9 @@
 No JAX program is compiled at 141 buses here: feeder141's paths are held in
 float64 against the reference the JAX package made in float64 through
 ``scan`` (``tests/data/onchip_ref_feeder141.npz``): the dense NR paths on 8
-lanes and 4 steps, the chord-only and ``tree_xla`` paths on all 64 lanes
-and 16 steps, with no kernel launch counted; ``check.run_check`` replays a
+lanes and 4 steps, the chord-only, ``tree_xla`` and ``fused`` (the
+whole-transition kernel's plain twin in its tree form) paths on all 64
+lanes and 16 steps, with no kernel launch counted; ``check.run_check`` replays a
 reference through a path.  Few tests, so that the file runs after the
 longest files have started."""
 
@@ -50,6 +51,12 @@ def test_feeder141_chord_only_replays_f64():
 
 def test_feeder141_tree_xla_replays_f64():
     res = _replay("tree_xla", 64, 16)
+    assert res["pass"] and res["term_mismatch_frac"] == 0.0 and res["n_compared_lane_steps"] == 64 * 16
+    assert res["max_state_div"] <= F64_ATOL and res["max_reward_div"] <= F64_ATOL
+
+
+def test_feeder141_fused_replays_f64():
+    res = _replay("fused", 64, 16)
     assert res["pass"] and res["term_mismatch_frac"] == 0.0 and res["n_compared_lane_steps"] == 64 * 16
     assert res["max_state_div"] <= F64_ATOL and res["max_reward_div"] <= F64_ATOL
 

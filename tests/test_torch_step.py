@@ -10,11 +10,14 @@ against the JAX package's.
 * ``fused_transition_plain`` in float64 against the port's unfused
   ``"pallas"`` and ``"tree"`` transitions on the ANM6, feeder33 and Baran
   and Wu grids, to 1e-9: on these radial grids ``"fused"`` solves in the
-  tree form, ``"fused_hybrid"`` in the dense one.
+  tree form, ``"fused_hybrid"`` in the dense one; on feeder141 (280
+  unknowns, past the dense form) ``"fused"`` against ``"tree"`` and
+  ``"tree_xla"``.
 * The form of the solve follows the grid and the call: the tree form on a
   radial grid without a chord prefix or pivoting, the dense one on a meshed
   grid (ANM6 with one more branch) and with either; neither adds to the
-  tree-NR kernel's counters.
+  tree-NR kernel's counters, and each adds its iterations, its unconverged
+  lanes and its lane-solves to the fused transition's own.
 * The dispatch: the semantic downgrade of ``"fused"`` on grids without a
   storage unit, and the kernel wrapper's refusals on the CPU.
 
@@ -32,7 +35,9 @@ from gym_anm_tpu_torch.core.grid import GridTensors, build_grid
 from gym_anm_tpu_torch.core.state import SIM_FIELDS
 from gym_anm_tpu_torch.core.transition import resolve_solver_path, transition
 from gym_anm_tpu_torch.envs.anm6.network import network as anm6_network
-from gym_anm_tpu_torch.envs.feeder_networks import make_baran_wu_33_network, make_feeder_network
+from gym_anm_tpu_torch.envs.feeder_networks import (
+    make_baran_wu_33_network, make_feeder_network, make_multi_feeder_network,
+)
 from gym_anm_tpu_torch.ops import nr_cuda, step_cuda, tree_cuda
 
 
@@ -88,14 +93,20 @@ def test_fused_matches_pallas_step_kernel_interpret():
     np.testing.assert_allclose(ours.penalty.numpy()[both], theirs["penalty"][both], atol=5e-3)
 
 
-@pytest.mark.parametrize("name", ["anm6", "feeder33", "baranwu33"])
+@pytest.mark.parametrize("name", ["anm6", "feeder33", "baranwu33", "feeder141"])
 def test_fused_plain_matches_unfused_f64(name):
-    spec, _ = build_grid(NETWORKS[name], 0.25, 100, dtype=np.float64)
+    net = make_multi_feeder_network() if name == "feeder141" else NETWORKS[name]
+    spec, _ = build_grid(net, 0.25, 100, dtype=np.float64)
     g = GridTensors.from_spec(spec, "cpu", torch.float64)
     assert step_cuda.tree_form(g.step) and g.tree is g.step.tree
     args = {k: torch.tensor(v) for k, v in _set_points(spec, 64, 1, np.float64).items()}
-    cases = (("fused", "pallas", {}), ("fused", "tree", {}),
-             ("fused_hybrid", "hybrid", dict(chord_iters=8, nr_pivot=True)))
+    if name == "feeder141":
+        # 280 unknowns: the dense paths are refused; the tree form against
+        # the tree-NR kernel's plain twin, by both of its routes.
+        cases = (("fused", "tree", {}), ("fused", "tree_xla", {}))
+    else:
+        cases = (("fused", "pallas", {}), ("fused", "tree", {}),
+                 ("fused_hybrid", "hybrid", dict(chord_iters=8, nr_pivot=True)))
     for fused, unfused, kw in cases:
         a = transition(g, **args, pf_method=fused, x_tol=1e-9, max_iter=12, **kw)
         b = transition(g, **args, pf_method=unfused, x_tol=1e-9, max_iter=12, **kw)
@@ -121,14 +132,19 @@ def test_fused_form_follows_the_grid_and_the_call(monkeypatch):
     args = {k: torch.tensor(v) for k, v in _set_points(radial, 64, 2, np.float64).items()}
     cases = ((g, {}, True), (g, dict(chord_iters=16), False), (g, dict(pivot=True), False), (gm, {}, False),
              (gm, dict(chord_iters=16, pivot=True), False))
+    k3_counts = lambda: step_cuda.iteration_counts("cpu").tolist() + [step_cuda.LANE_SOLVES]
     for grid, kw, tree in cases:
         assert step_cuda.tree_form(grid.step, **kw) == tree
         counters = (step_cuda.TREE_LAUNCHES, tree_cuda.LANE_SOLVES, tree_cuda.iteration_counts("cpu").tolist())
         del calls[:]
         lanes = step_cuda.pack_inputs(*args.values())
+        k0 = k3_counts()
         out = step_cuda.fused_transition_plain(grid.step, lanes, x_tol=1e-9, max_iter=12, **kw)
         assert len(calls) == int(tree)
         assert counters == (step_cuda.TREE_LAUNCHES, tree_cuda.LANE_SOLVES, tree_cuda.iteration_counts("cpu").tolist())
+        o = step_cuda.unpack_outputs(grid.step, out)
+        added = [int(o.n_iter.sum()), int((~(o.diff <= 1e-9)).sum()), 64]
+        assert [b - a for a, b in zip(k0, k3_counts())] == added and added[0] > 64
         # Either form solves the grid's own power flow: the meshed grid's
         # dense form matches its unfused dense transition.
         if grid is gm and not kw:
@@ -143,18 +159,18 @@ def test_fused_form_follows_the_grid_and_the_call(monkeypatch):
 def test_dispatch_and_wrapper_refusals():
     spec, _ = build_grid(anm6_network, 0.25, 100, dtype=np.float32)
     g = GridTensors.from_spec(spec, "cpu", torch.float32)
-    assert resolve_solver_path(g, "fused") == ("fused_kernel", "fused")
-    assert resolve_solver_path(g, "pallas") == ("nr_kernel", "pallas")
-    assert resolve_solver_path(g, "xla_hybrid") == ("torch", "xla_hybrid")
-    assert resolve_solver_path(g, "tree") == ("tree_kernel", "tree")
+    assert resolve_solver_path(g, "fused", False) == ("fused_kernel", "fused")
+    assert resolve_solver_path(g, "pallas", False) == ("nr_kernel", "pallas")
+    assert resolve_solver_path(g, "xla_hybrid", False) == ("torch", "xla_hybrid")
+    assert resolve_solver_path(g, "tree", False) == ("tree_kernel", "tree")
     # A grid without a load, a generator and a storage unit runs the fused
     # methods unfused, as the JAX package does.
     bare = dataclasses.replace(g, step=None)
-    assert resolve_solver_path(bare, "fused") == ("nr_kernel", "pallas")
-    assert resolve_solver_path(bare, "fused_hybrid") == ("nr_kernel", "hybrid")
-    assert resolve_solver_path(g, "tree_xla") == ("tree_plain", "tree_xla")
+    assert resolve_solver_path(bare, "fused", False) == ("nr_kernel", "pallas")
+    assert resolve_solver_path(bare, "fused_hybrid", False) == ("nr_kernel", "hybrid")
+    assert resolve_solver_path(g, "tree_xla", False) == ("tree_plain", "tree_xla")
     with pytest.raises(ValueError, match="pf_method"):
-        resolve_solver_path(g, "chord")
+        resolve_solver_path(g, "chord", False)
     no_des = dataclasses.replace(spec, n_des=0)
     assert not step_cuda.fused_transition_supported(no_des)
     with pytest.raises(ValueError, match="storage"):
